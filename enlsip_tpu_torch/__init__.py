@@ -1,0 +1,38 @@
+"""ENLSIP on PyTorch and CUDA: constrained nonlinear least squares for
+NVIDIA GPUs.
+
+The Lindström–Wedin ENLSIP method (active-set Gauss–Newton with
+null-space QR subproblem solves, subspace-minimization and Newton
+fallbacks, and a penalty-weighted merit-function line search) with the
+capabilities of the Julia reference UncertainLab/Enlsip.jl.  This
+package is the counterpart of the JAX package ``enlsip_tpu`` module by
+module; it imports ``torch`` and nothing of JAX.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; with no device and no such argument they raise.
+"""
+
+from .core.driver import Functions, SolveResult, solve as core_solve
+from .core.types import Dims, Options, Tols
+from .models.model import (CnlsModel, ExecutionInfo,
+                           bounds_constraints_values, constraints_values,
+                           convert_exit_code, dict_status_codes,
+                           equality_constraints_values,
+                           inequality_constraints_values,
+                           nb_equality_constraints, nb_inequality_constraints,
+                           nb_lower_bounds, nb_upper_bounds, print_cnls_model,
+                           solution, solve, status, sum_sq_residuals,
+                           total_nb_constraints)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CnlsModel", "ExecutionInfo", "solve", "status", "solution",
+    "sum_sq_residuals", "constraints_values", "equality_constraints_values",
+    "inequality_constraints_values", "bounds_constraints_values",
+    "total_nb_constraints", "nb_equality_constraints",
+    "nb_inequality_constraints", "nb_lower_bounds", "nb_upper_bounds",
+    "print_cnls_model", "dict_status_codes", "convert_exit_code",
+    "Dims", "Options", "Tols", "Functions", "SolveResult", "core_solve",
+    "__version__",
+]

@@ -1,0 +1,426 @@
+"""One solver iteration and the host loop around it.
+
+Counterpart of ``enlsip_tpu/core/driver.py`` (reference routines WRKSET,
+orchestrated in :func:`_working_set_round`, and the ``enlsip`` main
+loop).
+
+Design notes:
+
+* The reference unrolls the first iteration; here the loop body is
+  uniform and the first-iteration special cases are encoded in the
+  initial carry (see :func:`init_carry`).
+* The reference's WRKSET deletes a constraint suggested by the
+  first-order multipliers, recomputes the GN direction on the reduced
+  set, applies a feasible-direction test that is constant-false in the
+  reference source, re-adds the constraint and recomputes on the
+  original set.  The only lasting effects are ``del = false`` and
+  ``index_del = 0``; those are applied directly and the dead
+  factorizations skipped.  Actual deletions flow through the
+  second-order multiplier estimate, which is fully implemented.
+* The loop runs on the host and takes a Python branch wherever the
+  algorithm branches, evaluating one branch only; every such branch
+  reads a scalar back from the device (``_device.to_host`` counts
+  them).  The per-iteration math functions stay free of control flow.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from .._device import resolve_device, to_host
+from ..ops.qr import pseudo_rank
+from .direction import search_direction_analysis
+from .linesearch import compute_steplength
+from .subproblem import (ActiveConstraint, FactorA, FactorL11, GNResult,
+                         factor_active, factor_l11, first_mult_estimate,
+                         gather_active, gn_search_direction,
+                         second_mult_estimate, zeros_factor_l11)
+from .termination import check_termination
+from .types import (Carry, Counters, Dims, Options, PrevIter, Tols,
+                    WorkingView, matmul_precision_scope, rdims_or, scalar,
+                    working_view)
+from .working_set import (check_constraint_deletion,
+                          evaluate_violated_constraints, init_working_set,
+                          minmax_lagrangian_mult)
+
+
+class Functions(NamedTuple):
+    """User callables on tensors (Jacobians resolved by the models
+    layer): r(x) (m,), its Jacobian (m, n), c(x) (l,), its Jacobian
+    (l, n)."""
+
+    res: Callable
+    jac_res: Callable
+    cons: Callable
+    jac_cons: Callable
+
+
+def new_point(fns: Functions, x, counters: Counters):
+    """new_point!: evaluate r, J, c, A (4 evaluations).  The solve dtype
+    (x's) is authoritative: user closures are cast at this boundary."""
+    dt = x.dtype
+    rx = fns.res(x).to(dt)
+    J = fns.jac_res(x).to(dt)
+    cx = fns.cons(x).to(dt)
+    A = fns.jac_cons(x).to(dt)
+    return rx, J, cx, A, counters.bump(res=1, jacres=1, cons=1, jaccons=1)
+
+
+class WorkingSetRound(NamedTuple):
+    mask: torch.Tensor
+    view: WorkingView
+    t: torch.Tensor
+    act: ActiveConstraint
+    F_A: FactorA
+    F_L11: FactorL11
+    gn: GNResult
+    lam: torch.Tensor
+    grad_res: torch.Tensor
+    deleted: bool
+    index_del: torch.Tensor
+
+
+def _factor_stage1(mask, A, cx, gf, dims: Dims, scaling: bool, eps_rank):
+    """Gather/scale the active set and factor A_act^T (F_A + rank), then
+    F_L11 — only consumed on the rank-deficient (stabilized) path, so a
+    host branch computes it there and hands the full-rank GN path a
+    zeros placeholder whose downstream products are masked away.
+    (ANALYS's subspace branch, which needs F_L11 when rankA == t,
+    recomputes it itself.)"""
+    view = working_view(mask)
+    t = view.t
+    act = gather_active(A, cx, view, dims, scaling)
+    F_A = factor_active(act, gf, t, dims)
+    rankA = pseudo_rank(F_A.diag, t, eps_rank)
+    if bool(to_host(rankA < t)):
+        F_L11 = factor_l11(F_A, act, t)
+    else:
+        F_L11 = zeros_factor_l11(dims, F_A.R.dtype, F_A.R.device)
+    return view, t, act, F_A, rankA, F_L11
+
+
+def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
+                   eps_rank, rdims=None):
+    """One full factorization round: gather/scale -> F_A -> (F_L11) -> GN."""
+    view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
+                                                     scaling, eps_rank)
+    gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
+                             rdims)
+    return view, t, act, F_A, F_L11, gn
+
+
+class WSRound1(NamedTuple):
+    """Everything the first WRKSET round produces, plus the decision
+    inputs for the (rare) second-order deletion round."""
+
+    view: WorkingView
+    t: torch.Tensor
+    act: ActiveConstraint
+    F_A: FactorA
+    F_L11: FactorL11
+    gn: GNResult
+    lam: torch.Tensor        # first estimate
+    lam_sel: torch.Tensor    # lam2 on the full-rank path, else lam
+    lam2: torch.Tensor
+    grad_res: torch.Tensor
+    s2: torch.Tensor
+    do2: torch.Tensor
+    index_del: torch.Tensor
+
+
+def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
+               scaling: bool, tols: Tols, view, t, act, F_A, rankA,
+               F_L11, rdims=None, stall_hint=True,
+               rank_deficient_deletion: bool = True) -> WSRound1:
+    """WRKSET round 1 given stage-1 factorization results: GN direction,
+    both multiplier estimates, and the round-2 decision.  Control-flow
+    free apart from the dtype-static D13 block."""
+    rd = rdims_or(rdims, dims)
+    eps_rank = tols.eps_rank
+    gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
+                             rdims)
+    lam, grad_res = first_mult_estimate(F_A, act, t, dims, scaling, eps_rank)
+    s = check_constraint_deletion(rd.q, lam, act.valid, t, scaling,
+                                  act.diag_scale, grad_res)
+    # Lasting effect of the (always rolled back) first-order deletion
+    # detour: del := false, index_del := none.
+    index_del = torch.where(s >= 0, -1, index_del_in)
+
+    # Second-order estimate round: only when the factorizations are
+    # full-rank.
+    full_rank = (t == gn.rankA) & \
+        (gn.rankJ2 == torch.clamp(rd.n - gn.rankA, max=rd.m))
+    lam2 = second_mult_estimate(F_A, gn.JQ1, rx, J, gn.p, t, act, dims,
+                                scaling)
+    lam_sel = torch.where(full_rank, lam2, lam)
+    s2 = check_constraint_deletion(rd.q, lam2, act.valid, t, scaling,
+                                   act.diag_scale,
+                                   torch.zeros((), dtype=rx.dtype,
+                                               device=rx.device))
+    do2 = full_rank & (s2 >= 0)
+    if rank_deficient_deletion and \
+            torch.finfo(rx.dtype).eps > torch.finfo(torch.float64).eps:
+        # D13 (float32 robustness): rank-deficient second-order deletion.
+        # The reference's deletion gate requires FULL-RANK factorizations
+        # (the ``full_rank`` condition above).  At float64 that gate
+        # opens at every stationary point reached; at float32 a
+        # pseudo-rank can drop AT the optimum, and an iterate holding a
+        # genuinely negative inequality multiplier there is deadlocked:
+        # TERCRI's necessary conditions fail on sigma_min forever (the
+        # multiplier can only leave through this gate).  When the iterate
+        # already satisfies EVERY OTHER necessary first-order condition
+        # (feasible active + inactive sets, small projected gradient),
+        # the second estimate still flags a negative multiplier, AND the
+        # solve shows stall evidence (``stall_hint``: the last two steps
+        # moved x by < eps_x relative), the deletion is performed despite
+        # the deficient rank.  Far from stationarity nothing changes;
+        # float64 is untouched (dtype-static branch).
+        zero_s = torch.zeros_like(act.cx_act)
+        act_cx_nrm = torch.sqrt(torch.sum(torch.where(
+            act.valid, act.cx_act * act.cx_act, zero_s)))
+        stationary = (act_cx_nrm < tols.eps_c) & \
+            (grad_res < torch.sqrt(tols.eps_rel) * (1 + torch.linalg.norm(gf)))
+        inact = ~mask
+        inact_ok = torch.all(torch.where(inact, cx > 0.0,
+                                         torch.ones_like(inact)))
+        stationary = stationary & ((torch.sum(inact) == 0) | inact_ok)
+        sigma_min, lam_abs_max = minmax_lagrangian_mult(
+            lam, act.valid, t, rd.q, scaling, act.diag_scale)
+        factor = torch.where(t == 1, 1.0 + torch.dot(rx, rx), lam_abs_max)
+        neg_block = (t > rd.q) & (sigma_min < tols.eps_rel * factor)
+        deadlock = (stationary & neg_block & ~full_rank & (s2 >= 0) &
+                    stall_hint)
+        do2 = do2 | deadlock
+    return WSRound1(view=view, t=t, act=act, F_A=F_A, F_L11=F_L11, gn=gn,
+                    lam=lam, lam_sel=lam_sel, lam2=lam2, grad_res=grad_res,
+                    s2=s2, do2=do2, index_del=index_del)
+
+
+def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
+               scaling: bool, eps_rank, rdims=None):
+    """WRKSET second-order deletion round: drop the suggested constraint
+    and re-run the full factorization chain."""
+    s2c = torch.clamp(r1.s2, min=0)
+    gidx = r1.view.active_list[s2c]
+    mask2 = mask.clone()
+    mask2[gidx] = False          # in-place index assignment on the copy
+    view2, t2, act2, F_A2, F_L11_2, gn2 = _factor_and_gn(
+        mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims)
+    # Compact lam2: new slot j maps to old slot j (+1 past s2).
+    tmax = dims.tmax
+    j = torch.arange(tmax, device=mask.device)
+    lam_c = torch.where(j < s2c, r1.lam2,
+                        r1.lam2[torch.clamp(j + 1, max=tmax - 1)])
+    lam_c = torch.where(act2.valid, lam_c, torch.zeros_like(lam_c))
+    return WorkingSetRound(mask=mask2, view=view2, t=t2, act=act2, F_A=F_A2,
+                           F_L11=F_L11_2, gn=gn2, lam=lam_c,
+                           grad_res=r1.grad_res, deleted=True,
+                           index_del=gidx)
+
+
+def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
+                       opts: Options, tols: Tols, rdims=None,
+                       stall_hint=True) -> WorkingSetRound:
+    """WRKSET, see the module docstring for the branch analysis."""
+    scaling = opts.scaling
+    eps_rank = tols.eps_rank
+    view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
+                                                     scaling, eps_rank)
+    r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
+                    tols, view, t, act, F_A, rankA, F_L11, rdims, stall_hint,
+                    opts.rank_deficient_deletion)
+    if bool(to_host(r1.do2)):
+        return _ws_round2(r1, mask, A, cx, rx, J, gf, dims, scaling,
+                          eps_rank, rdims)
+    return WorkingSetRound(mask=mask, view=r1.view, t=r1.t, act=r1.act,
+                           F_A=r1.F_A, F_L11=r1.F_L11, gn=r1.gn,
+                           lam=r1.lam_sel, grad_res=r1.grad_res,
+                           deleted=False, index_del=r1.index_del)
+
+
+def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
+               rdims=None, device=None) -> Carry:
+    """Seed the carry so the uniform loop body reproduces the reference's
+    unrolled first iteration.  The previous-iteration snapshot fields
+    only need the values the first body actually reads: alpha = 1.0,
+    beta = 0, code = 1, w = INIALC weights,
+    progress = predicted_reduction = 0, x = x0."""
+    dev = resolve_device(device)
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+    rx, J, cx, A, counters = new_point(fns, x0, Counters.zeros())
+    mask, w0, K = init_working_set(cx, A, x0, dims, rdims)
+    f = lambda v: scalar(v, dtype, dev)
+    i = lambda v: scalar(v, torch.int64, dev)
+    prev = PrevIter(
+        x=x0, rx_sum=torch.dot(rx, rx), cx_sum=torch.dot(cx, cx),
+        t=torch.sum(mask), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
+        progress=f(0.0), predicted_reduction=f(0.0),
+        rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
+    return Carry(
+        x=x0, rx=rx, cx=cx, J=J, A=A, gf=J.t() @ rx, active_mask=mask, w=w0,
+        K=K, prev=prev, restart=scalar(False, torch.bool, dev),
+        index_del=i(-1), nb_newton_steps=0, nb_iter=0, exit_code=0,
+        counters=counters,
+        display=torch.zeros((opts.max_iter + 1, 5), dtype=dtype, device=dev),
+        n_display=0)
+
+
+def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
+                 tols: Tols, rdims=None) -> Carry:
+    """One full ENLSIP iteration (the reference loop body, which is also
+    its unrolled first iteration)."""
+    x, rx, cx, J, A, gf = (carry.x, carry.rx, carry.cx, carry.J, carry.A,
+                           carry.gf)
+    rx_sum_start = torch.dot(rx, rx)
+    cx_sum_start = torch.dot(cx, cx)
+
+    # --- EVSCAL + WRKSET ------------------------------------------------
+    # D13 stall evidence (float32 only; see _ws_round1): the last two
+    # steps moved x by less than eps_x relative — prev.x spans two steps,
+    # same as TERCRI's x_diff.
+    x_diff_prev = torch.linalg.norm(carry.prev.x - x)
+    stall_hint = (x_diff_prev < tols.eps_x * (1.0 + torch.linalg.norm(x))) \
+        & (carry.nb_iter >= 2)
+    wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
+                             carry.index_del, dims, opts, tols, rdims,
+                             stall_hint)
+    act_idx = wsr.view.active_list[:dims.tmax]
+    active_cx_sum = torch.sum(torch.where(wsr.act.valid, cx[act_idx] ** 2,
+                                          torch.zeros_like(cx[:1])))
+
+    # --- ANALYS ----------------------------------------------------------
+    ana = search_direction_analysis(
+        fns.res, fns.cons, x, rx, cx, wsr.act, active_cx_sum, wsr.gn,
+        wsr.F_A, wsr.F_L11, wsr.view, wsr.t, wsr.lam, carry.nb_iter,
+        carry.prev, carry.restart, False, wsr.deleted, dims, opts.scaling,
+        opts.second_derivatives, rdims)
+    return _post_direction(carry, fns, dims, opts, tols, wsr, ana,
+                           active_cx_sum, rx_sum_start, cx_sum_start, rdims)
+
+
+def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
+                    tols: Tols, wsr: WorkingSetRound, ana, active_cx_sum,
+                    rx_sum_start, cx_sum_start, rdims=None) -> Carry:
+    """Everything after ANALYS: STPLNG, the step, new_point, TERCRI and
+    the bookkeeping (the reference's loop tail)."""
+    x, rx, cx, J, A = carry.x, carry.rx, carry.cx, carry.J, carry.A
+    counters = carry.counters
+    t = wsr.t
+    act_idx = wsr.view.active_list[:dims.tmax]
+    # The reference bumps the residual/constraint counters through its
+    # finite-difference Hessians; the AD Hessians count as one each.
+    if ana.newton_taken:
+        counters = counters.bump(res=1, cons=1)
+    nb_newton = carry.nb_newton_steps + (1 if ana.newton_taken else 0)
+
+    # --- STPLNG ----------------------------------------------------------
+    res_trial = lambda xx, pp: (lambda a: fns.res(xx + a.to(xx.dtype) * pp))
+    code = int(to_host(ana.code))
+    sl = compute_steplength(
+        res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
+        ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
+        carry.prev, carry.K, wsr.mask, dims, opts.weight_code, counters,
+        opts.linesearch_max_refine, opts.gac_max_halvings,
+        opts.eucmod_max_passes, opts.scaling)
+    counters = sl.counters
+
+    # --- step + new point --------------------------------------------
+    x_new = x + sl.alpha * ana.p
+    rx_new, J_new, cx_new, A_new, counters = new_point(fns, x_new, counters)
+    gf_new = J_new.t() @ rx_new
+    rx_sum_new = torch.dot(rx_new, rx_new)
+    restart_new = ana.error_code < 0
+
+    sigma_min, lam_abs_max = minmax_lagrangian_mult(
+        wsr.lam, wsr.act.valid, t, rdims_or(rdims, dims).q, opts.scaling,
+        wsr.act.diag_scale)
+
+    # NOTE: the reference copies previous_iter BEFORE refreshing iter.x,
+    # so the prev_iter.x TERCRI reads in body k is the PREVIOUS body's
+    # starting point: x_diff spans TWO steps.  carry.prev.x holds exactly
+    # that point (and x0 in the first body).
+    exit_code = int(to_host(check_termination(
+        ana.p, ana.code, restart_new, wsr.deleted, ana.d, ana.dimJ2,
+        wsr.grad_res, wsr.act.cx_act, wsr.act.A_act, wsr.act.valid, t,
+        x_new, carry.prev.x, cx_new, wsr.mask, rx_sum_new, gf_new,
+        carry.nb_iter, opts.max_iter, tols, ana.error_code, sigma_min,
+        lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)))
+
+    # --- bookkeeping: display, EVADD, prev snapshot -------------------
+    record = carry.nb_iter == 0 or exit_code == 0
+    progress_out = sl.progress if sl.updated_progress else carry.prev.progress
+    predred_out = (sl.predicted_reduction if sl.updated_progress
+                   else carry.prev.predicted_reduction)
+    display, mask_final = carry.display, wsr.mask
+    if record:
+        objective = rx_sum_start if carry.nb_iter == 0 else rx_sum_new
+        # in-place row assignment: the display buffer belongs to the carry
+        display[carry.nb_iter] = torch.stack([
+            objective, active_cx_sum, torch.linalg.norm(ana.p), sl.alpha,
+            progress_out])
+        mask_final, _added = evaluate_violated_constraints(
+            cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
+
+    prev_new = PrevIter(
+        x=x, rx_sum=rx_sum_start, cx_sum=cx_sum_start, t=t, alpha=sl.alpha,
+        beta=ana.beta, code=ana.code, w=sl.w, progress=progress_out,
+        predicted_reduction=predred_out, rankA=wsr.gn.rankA,
+        rankJ2=wsr.gn.rankJ2, dimA=ana.dimA, dimJ2=ana.dimJ2)
+
+    return Carry(
+        x=x_new, rx=rx_new, cx=cx_new, J=J_new, A=A_new, gf=gf_new,
+        active_mask=mask_final, w=sl.w, K=sl.K, prev=prev_new,
+        restart=restart_new, index_del=wsr.index_del,
+        nb_newton_steps=nb_newton,
+        nb_iter=carry.nb_iter + (1 if record else 0),
+        exit_code=exit_code, counters=counters, display=display,
+        n_display=carry.n_display + (1 if record else 0))
+
+
+class SolveResult(NamedTuple):
+    exit_code: int
+    x: torch.Tensor
+    f: float
+    n_iter: int
+    display: torch.Tensor
+    n_display: int
+    counters: Counters
+    solving_time: float
+
+
+def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
+          time_limit: Optional[float] = None, dtype=None, device=None,
+          on_iteration: Optional[Callable[[Carry], None]] = None
+          ) -> SolveResult:
+    """Host-level solve: the iteration loop with a wall-clock limit.
+
+    Runs on ``device`` (default: the card; raises if there is none).
+    Like the reference, the loop reads the clock every iteration;
+    ``time_limit`` (seconds; ``None`` = unlimited) that has run out
+    before an iteration starts ends the solve with exit code -11.
+    ``on_iteration(carry)`` is called after every iteration (tracing and
+    tests)."""
+    dev = resolve_device(device)
+    if dtype is None:
+        dtype = x0.dtype if isinstance(x0, torch.Tensor) else torch.float64
+    start_time = time.time()
+    limit = float("inf") if time_limit is None else time_limit
+    tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
+                  for v in tols))
+    with matmul_precision_scope(opts):
+        carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
+        while carry.exit_code == 0:
+            if time.time() - start_time >= limit:
+                carry = carry._replace(exit_code=-11)
+                break
+            carry = iterate_body(carry, fns, dims, opts, tols)
+            if on_iteration is not None:
+                on_iteration(carry)
+        f = float(torch.dot(carry.rx, carry.rx))
+    return SolveResult(exit_code=carry.exit_code, x=carry.x, f=f,
+                       n_iter=carry.nb_iter, display=carry.display,
+                       n_display=carry.n_display, counters=carry.counters,
+                       solving_time=time.time() - start_time)

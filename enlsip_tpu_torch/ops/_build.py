@@ -1,0 +1,90 @@
+"""Build the package's CUDA sources with ``nvcc`` into shared libraries
+with a plain C interface, loaded through ``ctypes``.
+
+Nothing here runs at import time.  :func:`load_library` compiles
+``csrc/<name>.cu`` for ``sm_90a`` at first use into the build directory
+(``build/`` beside the package), keyed by a hash of every file under
+``csrc/`` so an edited source is rebuilt and an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
+source at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    return CSRC.parent.parent / "build"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels of enlsip_tpu_torch "
+                       "are compiled at first use and need the CUDA toolkit")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path(name: str) -> Path:
+    return build_dir() / f"lib{name}_{_source_hash()}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for ``csrc/<name>.cu``; returns (process, tmp, final)."""
+    out = library_path(name)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(name: str, proc, tmp: Path, out: Path) -> Path:
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)        # atomic: a reader never sees a partial file
+    return out
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Build every (or the named) ``csrc/*.cu`` not built yet, all
+    compilers started together."""
+    names = list(names) if names else sorted(p.stem for p in CSRC.glob("*.cu"))
+    jobs = {n: _start_build(n) for n in names if not library_path(n).exists()}
+    for n, (proc, tmp, out) in jobs.items():
+        _finish_build(n, proc, tmp, out)
+    return {n: library_path(n) for n in names}
+
+
+def load_library(name: str) -> ctypes.CDLL:
+    """The shared library of ``csrc/<name>.cu``, built at first use."""
+    if name not in _loaded:
+        path = build_all([name])[name]
+        _loaded[name] = ctypes.CDLL(str(path))
+    return _loaded[name]

@@ -1,0 +1,314 @@
+"""Column-pivoted Householder QR with compact-WY implicit Q.
+
+Counterpart of ``enlsip_tpu/ops/blocked_qr.py``.  The reference leans
+on LAPACK ``geqp3`` through Julia's ``qr(A, ColumnNorm())``; this module
+provides the same factorization in three forms behind one dispatch
+(:func:`cpqr_blocked`):
+
+* the rank-1 update loop with *exact* trailing column norms every step
+  (:func:`_cpqr_xla`), for small and medium matrices;
+* a geqp3-style panel loop with downdated norms
+  (:func:`_cpqr_xla_panels`), for large factorizations on the CPU;
+* the fused Hopper kernel (``ops/cpqr_hopper.py``), for large
+  factorizations on a CUDA device.
+
+``Q`` is never materialized.  Reflectors ``V, tau`` come back with
+panel-wise compact-WY ``T`` factors (``Q = prod_p (I - V_p T_p V_p^T)``),
+so ``Q^T x``, ``Q x`` and ``J @ Q`` are short chains of matrix products.
+
+Zero (masked) columns have zero norms, pivot last and produce
+``tau = 0`` no-op reflectors — callers mask invalid columns and get the
+factorization of the live submatrix.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .._device import resolve_device, to_host
+
+# WY panel width for T/apply blocking.
+NB = 128
+# Smallest min(rows, cols) sent to the panel loop (CPU) or the fused
+# kernel (CUDA); below it the rank-1 loop runs.
+LARGE_KMAX = 192
+
+
+class CPQRF(NamedTuple):
+    """Pivoted QR: ``M[:, perm] = Q @ [R; 0]`` with
+    ``Q = (I - V_0 T_0 V_0^T) (I - V_1 T_1 V_1^T) ...`` (implicit).
+
+    R: (kmax, cols) upper-trapezoidal; V: (rows, kp) unit-lower
+    reflectors (kp = kmax padded to the panel width); tau: (kp,);
+    T: (np, nb, nb) per-panel WY factors; perm: (cols,) int64;
+    diag: (kmax,)."""
+
+    R: torch.Tensor
+    perm: torch.Tensor
+    V: torch.Tensor
+    tau: torch.Tensor
+    T: torch.Tensor
+    diag: torch.Tensor
+
+
+def panel_width(kmax: int, nb: int = NB) -> tuple[int, int]:
+    """(nb, kp): the WY panel width for ``kmax`` reflectors and ``kmax``
+    padded up to a multiple of it."""
+    nb = min(nb, kmax) if kmax >= nb else kmax
+    return nb, -(-kmax // nb) * nb
+
+
+def _householder_col(col: torch.Tensor, k: int):
+    """Reflector annihilating col[k+1:]; entries < k ignored.
+    Returns (v, tau, beta); no-op (v=0, tau=0) for a zero tail, where
+    the third value keeps ``alpha``."""
+    tail = col[k:]
+    alpha = col[k]
+    signorm = torch.sqrt(torch.sum(tail * tail))
+    beta = torch.where(alpha >= 0, -signorm, signorm)
+    denom = alpha - beta
+    safe = denom.abs() > 0
+    one = torch.ones_like(denom)
+    denom = torch.where(safe, denom, one)
+    v = torch.zeros_like(col)
+    v[k + 1:] = tail[1:] / denom
+    v[k] = safe.to(col.dtype)
+    tau = torch.where(safe & (beta != 0),
+                      (beta - alpha) / torch.where(beta != 0, beta, one),
+                      torch.zeros_like(beta))
+    return v, tau, torch.where(safe, beta, alpha)
+
+
+def _panel_T(V: torch.Tensor, taus: torch.Tensor, nb: int) -> torch.Tensor:
+    """Per-panel compact-WY T factors: T_p = U_p^{-1},
+    U_p = diag(1/tau_p) + strict_upper(V_p^T V_p)."""
+    rows, kp = V.shape
+    n_panels = kp // nb
+    Vp = V.reshape(rows, n_panels, nb).permute(1, 0, 2)     # (np, rows, nb)
+    tp = taus.reshape(n_panels, nb)
+    VtV = Vp.transpose(1, 2) @ Vp
+    live = tp > 0
+    safe_tau = torch.where(live, tp, torch.ones_like(tp))
+    U = torch.triu(VtV, 1) + torch.diag_embed(1.0 / safe_tau)
+    eye = torch.eye(nb, dtype=V.dtype, device=V.device).expand_as(U)
+    T = torch.linalg.solve_triangular(U, eye, upper=True)
+    keep = live[:, :, None] & live[:, None, :]
+    return torch.where(keep, T, torch.zeros_like(T))
+
+
+def _clamp_steps(nsteps, kmax: int) -> int:
+    """Host int number of Householder steps, clamped to [0, kmax]."""
+    if nsteps is None:
+        return kmax
+    return max(0, min(int(to_host(nsteps)), kmax))
+
+
+# ------------------------------------------------------ rank-1 loop
+
+def cpqr_packed_plain(M: torch.Tensor, nsteps: int):
+    """The rank-1 update loop on the transposed buffer, returning the
+    fused kernel's packed triple — this is the kernel's plain version.
+
+    Returns ``(Bt, tau, perm)``: ``Bt`` (cols, rows) holds, for every
+    factored column k, R above the diagonal, the Householder beta on it
+    and the reflector tail below; columns > k carry the updated trailing
+    matrix; columns ``>= nsteps`` are never touched below the rows the
+    reflectors reached.  ``tau`` is (kp,), zero past ``nsteps``;
+    ``perm`` is (cols,) int64."""
+    rows, cols = M.shape
+    kmax = min(rows, cols)
+    _, kp = panel_width(kmax)
+    dev = M.device
+    Bt = M.t().clone(memory_format=torch.contiguous_format)
+    taus = torch.zeros(kp, dtype=M.dtype, device=dev)
+    perm = torch.arange(cols, device=dev)
+    for k in range(_clamp_steps(nsteps, kmax)):
+        # exact trailing norms (B-rows >= k) of the unpivoted columns;
+        # argmax returns the first maximum
+        sub = Bt[k:, k:]
+        piv = k + torch.argmax(torch.sum(sub * sub, dim=1))
+        idx = torch.stack([torch.as_tensor(k, device=dev), piv])
+        # in-place swaps by index assignment (the reference's
+        # scatter-free select updates are a TPU workaround)
+        Bt[idx] = Bt[idx.flip(0)]
+        perm[idx] = perm[idx.flip(0)]
+        v, tau, diag = _householder_col(Bt[k], k)
+        trail = Bt[k + 1:]
+        trail -= torch.outer(tau * (trail @ v), v)
+        Bt[k, k] = diag
+        Bt[k, k + 1:] = v[k + 1:]
+        taus[k] = tau
+    return Bt, taus, perm
+
+
+def unpack_packed(Bt: torch.Tensor, tau: torch.Tensor, perm: torch.Tensor,
+                  nb: int = NB) -> CPQRF:
+    """Packed triple -> :class:`CPQRF`: R = triu, V = strict lower part
+    with a unit diagonal where ``tau > 0``, per-panel T."""
+    cols, rows = Bt.shape
+    kmax = min(rows, cols)
+    nb, kp = panel_width(kmax, nb)
+    B = Bt.t()
+    R = torch.triu(B[:kmax, :])
+    V = torch.zeros((rows, kp), dtype=Bt.dtype, device=Bt.device)
+    V[:, :kmax] = torch.tril(B[:, :kmax], -1)
+    k = torch.arange(kmax, device=Bt.device)
+    V[k, k] = (tau[:kmax] > 0).to(Bt.dtype)
+    if tau.shape[0] != kp:     # packed tau is padded to the NB grid
+        tau = torch.cat([tau[:kmax], tau.new_zeros(kp - kmax)])
+    return CPQRF(R=R, perm=perm, V=V, tau=tau, T=_panel_T(V, tau, nb),
+                 diag=torch.diagonal(R).clone())
+
+
+def _cpqr_xla(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
+    """The rank-1 update loop with exact norms (named after its
+    reference counterpart)."""
+    return unpack_packed(*cpqr_packed_plain(M, nsteps), nb=nb)
+
+
+# ------------------------------------------------------- panel loop
+
+def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
+    """geqp3-style panel CPQR (LAPACK xLAQPS structure): within a panel
+    the matrix stays STALE and each reflector's effect is carried by the
+    accumulator F, with updated_j = B - V_j F_j^T holding exactly; the
+    trailing matrix is updated ONCE per panel by a single matrix
+    product.  Pivoting searches all trailing columns using downdated
+    norms (nrm2 -= R[k, :]^2), with an exact recompute at every panel
+    start, so downdating drift is bounded to one panel.
+
+    Same contract as :func:`_cpqr_xla`; individual values differ by
+    reduction order, and pivot tie-breaking can differ where downdated
+    and exact norms round differently."""
+    rows, cols = M.shape
+    kmax = min(rows, cols)
+    nb, kp = panel_width(kmax, nb)
+    n_panels = kp // nb
+    dtype, dev = M.dtype, M.device
+    ridx = torch.arange(rows, device=dev)
+    cidx = torch.arange(cols, device=dev)
+    ub = _clamp_steps(nsteps, kmax)
+
+    B = M.clone()
+    V = torch.zeros((rows, kp), dtype=dtype, device=dev)
+    taus = torch.zeros((kp,), dtype=dtype, device=dev)
+    perm = torch.arange(cols, device=dev)
+
+    for p in range(n_panels):
+        s = p * nb
+        # Exact trailing norms at panel start (bounds downdate drift).
+        nrm2 = torch.sum(B[s:] * B[s:], dim=0)
+        Vp = torch.zeros((rows, nb), dtype=dtype, device=dev)
+        tp = torch.zeros((nb,), dtype=dtype, device=dev)
+        betas = torch.zeros((nb,), dtype=dtype, device=dev)
+        F = torch.zeros((cols, nb), dtype=dtype, device=dev)
+        # Steps at or past ``ub`` are exact no-ops (self-swap,
+        # tau = v = 0) and are skipped on the host.
+        for j in range(max(0, min(nb, ub - s))):
+            # Clamp to a real column, as the reference does: s + j can
+            # reach kp > cols in the final panel, and an out-of-range
+            # index raises here.
+            k = min(s + j, cols - 1)
+            # ---- pivot among trailing columns (downdated norms) ------
+            piv = k + torch.argmax(nrm2[k:])
+            idx = torch.stack([torch.as_tensor(k, device=dev), piv])
+            swp = idx.flip(0)
+            B[:, idx] = B[:, swp]
+            F[idx] = F[swp]
+            nrm2[idx] = nrm2[swp]
+            perm[idx] = perm[swp]
+            # ---- current column with pending panel updates applied ---
+            bcol = B[:, k] - Vp[:, :j] @ F[k, :j]
+            v, tau, beta = _householder_col(bcol, k)
+            # ---- F column j: tau (B^T v - F (Vp^T v)) ----------------
+            w1 = B.t() @ v                                    # full pass
+            w2 = Vp[:, :j].t() @ v
+            F[:, j] = tau * (w1 - F[:, :j] @ w2)
+            Vp[:, j] = v
+            tp[j] = tau
+            betas[j] = beta
+            # ---- row k of the updated matrix -> norm downdate --------
+            rowk = B[k] - F[:, :j + 1] @ Vp[k, :j + 1]
+            down = torch.clamp(nrm2 - rowk * rowk, min=0.0)
+            nrm2 = torch.where(cidx > k, down, nrm2)
+
+        # ---- one matrix product updates panel + trailing columns -----
+        B -= Vp @ F.t()
+        # Panel columns inside the nsteps bound: exact Householder beta
+        # on the diagonal, zeros below it (V is stored separately).
+        # Columns past ub were never factorized and stay untouched.
+        active_col = (cidx >= s) & (cidx < s + nb) & (cidx < ub)
+        below = ridx[:, None] > cidx[None, :]
+        B = torch.where(active_col[None, :] & below, torch.zeros_like(B), B)
+        # (indexing with a clamp: for the last panel s + nb may exceed
+        # cols)
+        beta_of_col = betas[torch.clamp(cidx - s, 0, nb - 1)]
+        diag_mask = (ridx[:, None] == cidx[None, :]) & active_col[None, :]
+        B = torch.where(diag_mask, beta_of_col[None, :], B)
+        V[:, s:s + nb] = Vp
+        taus[s:s + nb] = tp
+
+    R = torch.triu(B[:kmax, :])
+    return CPQRF(R=R, perm=perm, V=V, tau=taus, T=_panel_T(V, taus, nb),
+                 diag=torch.diagonal(R).clone())
+
+
+# --------------------------------------------------------- dispatch
+
+def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
+                 device=None) -> CPQRF:
+    """Column-pivoted QR of a fixed-shape buffer (zeroed invalid columns
+    pivot last).
+
+    ``nsteps`` (int or 0-d tensor) bounds the number of Householder
+    steps to the number of LIVE columns: steps past it would be no-ops
+    on zero columns (tau = 0), so skipping them changes nothing — but
+    for a masked buffer like the solver's J2 (n - rankA live columns of
+    n) it removes almost the whole sequential loop.
+
+    Runs on ``device`` (default: the card; raises if there is none).
+    Factorizations with min(rows, cols) >= 192 go to the fused Hopper
+    kernel on a CUDA device and to the panel loop on the CPU; smaller
+    ones run the rank-1 loop on either."""
+    M = torch.as_tensor(M).to(resolve_device(device))
+    kmax = min(M.shape)
+    if kmax >= LARGE_KMAX:
+        if M.is_cuda:
+            from .cpqr_hopper import cpqr_hopper
+            steps = _clamp_steps(nsteps, kmax)
+            return unpack_packed(*cpqr_hopper(M.contiguous(), steps), nb=nb)
+        return _cpqr_xla_panels(M, nb, nsteps)
+    return _cpqr_xla(M, nb, nsteps)
+
+
+# ------------------------------------------------------- Q application
+# Q = P_0 P_1 ... P_{np-1},  P_i = I - V_i T_i V_i^T.
+
+def _panels(f: CPQRF):
+    kp = f.V.shape[1]
+    nb = f.T.shape[1]
+    return [(f.V[:, i * nb:(i + 1) * nb], f.T[i]) for i in range(kp // nb)]
+
+
+def qt_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
+    """Q^T @ x (vector or matrix): apply P_i^T in forward order."""
+    for Vi, Ti in _panels(f):
+        x = x - Vi @ (Ti.t() @ (Vi.t() @ x))
+    return x
+
+
+def q_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
+    """Q @ x: apply P_i in reverse order."""
+    for Vi, Ti in reversed(_panels(f)):
+        x = x - Vi @ (Ti @ (Vi.t() @ x))
+    return x
+
+
+def right_q_apply(f: CPQRF, J: torch.Tensor) -> torch.Tensor:
+    """J @ Q: right-multiply by P_i in forward order (plain matrix
+    products)."""
+    for Vi, Ti in _panels(f):
+        J = J - ((J @ Vi) @ Ti) @ Vi.t()
+    return J
