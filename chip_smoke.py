@@ -9,14 +9,17 @@ It needs one CUDA device and ``nvcc``; with no device it exits non-zero
 at once and prints no result.  It builds the CUDA kernels from
 ``enlsip_tpu_torch/csrc`` (into ``build/``), holds every kernel against
 its plain PyTorch version on the card at the shapes the main path gives
-it, drives the main path — ``solve(CnlsModel)`` on Chained Rosenbrock
-n=1000 at float32 and float64 — through the public entry points, solves
-three small problems that take the rank-deficient, subspace and Newton
-branches, and prints one JSON object per line.  The last line is
+it, drives the main paths through the public entry points —
+``solve(CnlsModel)`` on Chained Rosenbrock n=1000 at float32 and
+float64, and ``solve_batched`` on HS65 x 4096 lanes and on the ODE
+parameter fit x 10,000 lanes with per-lane observations at float32 —
+solves three small problems that take the rank-deficient, subspace and
+Newton branches, checks four float64 batch lanes against their single
+solves, and prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
 
-``--kernels-only`` stops after the kernel checks.  ``--profile`` adds a
-``profile`` line: one float32 solve of the main path under
+``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
+``profile`` lines: one float32 solve of each main path under
 ``torch.profiler``, with the device's busy share and the kernels that
 take most of its time.
 """
@@ -42,7 +45,16 @@ from enlsip_tpu_torch import _device
 from enlsip_tpu_torch.ops import _build
 from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain, q_apply,
                                              unpack_packed)
+from enlsip_tpu_torch.core.driver import Functions
+from enlsip_tpu_torch.models.model import (_model_functions,
+                                           build_constraint_functions,
+                                           total_nb_constraints)
+from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
+    cpqr_batched_packed, cpqr_batched_packed_plain, launch_soa,
+    unpack_batched)
 from enlsip_tpu_torch.ops.cpqr_hopper import cpqr_hopper
+from enlsip_tpu_torch.parallel import run_batch, solve_batched
+from enlsip_tpu_torch.problems import ode_fit
 from enlsip_tpu_torch.problems.classic import (HS65, HS65_FSTAR, OSBORNE2,
                                                chained_rosenbrock,
                                                chained_wood)
@@ -59,6 +71,11 @@ PEAK_FLOPS = {torch.float32: 67e12,      # float32 outside the tensor cores
 # running the JAX reference package (enlsip_tpu.solve, float64, CPU) on
 # the same model; it exits found_first_order_stationary_point.
 CR1000_FSTAR_REFERENCE = 6.232458632437989
+# The float64 optimum of HS65 is well conditioned, but the last line
+# search of a solve runs on a merit that is flat to rounding, and a
+# batched and a single matrix product round differently in the last bit:
+# x of a lane and of its single solve agree to this, not to the bit.
+LANE_SINGLE_X_ATOL = 1e-7
 # Objectives of the small problems, from the JAX reference package
 # (float64, CPU): Osborne-2 with default tolerances, Chained Wood n=20
 # with rel_tol=1e-5, x_tol=1e-3, c_tol=1e-6 (the reference's own pinned
@@ -221,6 +238,139 @@ def check_kernels():
     return cases
 
 
+# ------------------------------------------- batched kernel (B2) checks
+
+HS65_DIMS = et.Dims(n=3, m=3, q=0, l=7)
+ODE_DIMS = et.Dims(n=ode_fit.N_PARAMS, m=ode_fit.N_POINTS, q=0,
+                   l=2 * ode_fit.N_PARAMS)
+HS65_LANES = 4096
+ODE_LANES = 10_000
+
+
+def batched_kernel_cases():
+    """(name, B, rows, cols, live columns, kind, on the main path).  The
+    main-path shapes are read off the problems' Dims: A_act^T is
+    (n, l), J2 is (m, n)."""
+    h, o = HS65_DIMS, ODE_DIMS
+    return [
+        ("A_act^T hs65", HS65_LANES, h.n, h.l, 2, "leading_live", True),
+        ("J2 hs65", HS65_LANES, h.m, h.n, 2, "trailing_live", True),
+        ("A_act^T ode_fit", ODE_LANES, o.n, o.l, 4, "leading_live", True),
+        ("J2 ode_fit", ODE_LANES, o.m, o.n, o.n, "normal", True),
+        ("10x10 square", ODE_LANES, 10, 10, 10, "normal", False),
+        ("513 lanes, 9 live of 20", 513, 16, 20, 9, "leading_live", False),
+        ("1100 lanes", 1100, 6, 5, 5, "normal", False),
+        ("one lane", 1, 5, 5, 5, "normal", False),
+        ("gate edge 64x32", 650, 64, 32, 32, "normal", False),
+        ("all-zero lanes", 700, 8, 6, 6, "zero_lanes", False),
+        ("graded pivots", 2048, 24, 12, 12, "graded", False),
+    ]
+
+
+def _batched_case_matrix(kind, B, rows, cols, live, dtype, seed):
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(B, rows, cols))
+    if kind == "leading_live":
+        M[:, :, live:] = 0.0
+    elif kind == "trailing_live":
+        M[:, :, :cols - live] = 0.0
+    elif kind == "zero_lanes":
+        M[::3] = 0.0
+    elif kind == "graded":
+        Q, _ = np.linalg.qr(M)
+        scale = 0.9 ** np.arange(cols)
+        order = np.argsort(rng.random(size=(B, cols)), axis=1)
+        M = np.take_along_axis(Q * scale, order[:, None, :], axis=2)
+    return torch.tensor(M, dtype=dtype, device=DEV)
+
+
+def cpqr_batched_bound(B, rows, cols, dtype):
+    """Contract bound of one batch factorization: every matrix read once
+    and its packed form written once, plus tau and perm, over the memory
+    rate; 6 flops per trailing element per step over the peak rate."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    kmax = min(rows, cols)
+    nbytes = 2 * B * rows * cols * itemsize + B * (kmax * itemsize + 4 * cols)
+    flops = 6 * B * sum((rows - k) * (cols - k) for k in range(kmax))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_batched_kernel_case(name, B, rows, cols, live, kind, main_path,
+                              dtype):
+    M = _batched_case_matrix(kind, B, rows, cols, live, dtype,
+                             seed=B + rows + cols)
+    before = M.clone()
+    packed, tau, perm = cpqr_batched_packed(M)
+    torch.cuda.synchronize()
+    assert torch.equal(M, before), f"{name}: the input was modified"
+    pp, ptau, pperm = cpqr_batched_packed_plain(M)
+    torch.cuda.synchronize()
+    lane_equal = (perm == pperm).all(dim=1)
+    perm_equal = bool(lane_equal.all())
+    scale = max(float(pp.abs().max()), 1e-300)
+    packed_err = float((packed - pp)[lane_equal].abs().max()) / scale \
+        if bool(lane_equal.any()) else 0.0
+    tau_err = float((tau - ptau)[lane_equal].abs().max()) \
+        if bool(lane_equal.any()) else 0.0
+
+    f = unpack_batched(packed, tau, perm)
+    kmax = min(rows, cols)
+    RR = torch.zeros((B, rows, cols), dtype=dtype, device=DEV)
+    RR[:, :kmax] = f.R
+    MP = torch.gather(M, 2, perm[:, None, :].expand(B, rows, cols))
+    resid = torch.linalg.matrix_norm(q_apply(f, RR) - MP)
+    mnorm = torch.linalg.matrix_norm(M)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-4
+    # (an all-zero lane has resid = mnorm = 0 and counts as exact)
+    rel = torch.where(mnorm > 0, resid / mnorm.clamp(min=1e-30), resid)
+    recon = float(rel.max())
+    assert bool((resid <= rtol * mnorm).all()), (name, recon)
+    assert bool(torch.isfinite(packed).all()) and bool(torch.isfinite(tau).all())
+    if dtype == torch.float64:
+        # same arithmetic in another summation order: 1e-9 relative
+        assert perm_equal, f"{name} f64: perm differs from the plain version"
+        assert packed_err <= 1e-9 and tau_err <= 1e-9, (name, packed_err, tau_err)
+    elif kind == "graded":
+        assert perm_equal, f"{name} f32: perm differs on graded matrices"
+    if kind == "zero_lanes":
+        assert float(packed[::3].abs().max()) == 0.0
+        assert float(tau[::3].abs().max()) == 0.0
+
+    ms = cuda_ms(lambda: cpqr_batched_packed(M), reps=10)
+    plain_ms = cuda_ms(lambda: cpqr_batched_packed_plain(M), reps=3)
+    # the kernel without the wrapper's layout copies, on a fresh copy of
+    # the structure-of-arrays buffer each time (the copy is not timed)
+    soa0 = M.permute(2, 1, 0).contiguous()
+    kernel_ms = []
+    for _ in range(6):
+        soa = soa0.clone()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        launch_soa(soa)
+        b.record()
+        torch.cuda.synchronize()
+        kernel_ms.append(a.elapsed_time(b))
+    kernel_only_ms = statistics.median(kernel_ms[1:])
+    bound_ms, bound_by = cpqr_batched_bound(B, rows, cols, dtype)
+    return {"case": name, "shape": [B, rows, cols], "live_columns": live,
+            "dtype": str(dtype).replace("torch.", ""), "main_path": main_path,
+            "perm_equal": perm_equal,
+            "perm_equal_share": float(lane_equal.double().mean()),
+            "max_abs_err": packed_err, "tau_err": tau_err,
+            "recon_rel_err": recon, "ms": ms, "kernel_only_ms": kernel_only_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def check_batched_kernels():
+    return [check_batched_kernel_case(*case, dtype)
+            for dtype in (torch.float64, torch.float32)
+            for case in batched_kernel_cases()]
+
+
 # ------------------------------------------------------------ main path
 
 def solve_cr1000(dtype):
@@ -291,17 +441,147 @@ def solve_small():
     return out
 
 
-def profile_cr1000():
-    """One warm float32 solve under torch.profiler: wall seconds, the sum
-    of device kernel time, the busy share, and the top kernels by name."""
+# -------------------------------------------------- batched main paths
+
+def _hs65_batch(dtype, B, seed=0):
+    """HS65 from B perturbed starts (0.3 N(0,1) about the standard
+    start), as the JAX package's batched benchmark draws them."""
+    model = et.CnlsModel(**HS65)
+    fns = Functions(*_model_functions(model, dtype, DEV))
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(HS65["starting_point"])
+    return fns, x0[None, :] + 0.3 * rng.normal(size=(B, 3))
+
+
+def _timed_batch(solve):
+    """Warm-up solve, then one solve with every count set to 0 just
+    before it and read just after."""
+    solve()
+    torch.cuda.synchronize()
+    cpqr_batched_packed.launches = 0
+    cpqr_hopper.launches = 0
+    _device.reset_readback_count()
+    t0 = time.time()
+    res = solve()
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    trips = run_batch.last_trips
+    stats = {"seconds_per_batch_solve": seconds, "trips": trips,
+             "cpqr_batched_launches": cpqr_batched_packed.launches,
+             "launches_per_trip": cpqr_batched_packed.launches / max(trips, 1),
+             "host_readbacks": _device.readback_count(),
+             "host_readbacks_per_trip": _device.readback_count() / max(trips, 1)}
+    assert stats["cpqr_batched_launches"] >= 2 * trips > 0, stats
+    return res, stats
+
+
+def _exit_code_counts(ec):
+    codes, counts = np.unique(ec, return_counts=True)
+    return {int(c): int(k) for c, k in zip(codes, counts)}
+
+
+def batched_hs65():
+    B, dtype = HS65_LANES, torch.float32
+    fns, starts = _hs65_batch(dtype, B)
+    tols = et.Tols.for_dtype(dtype, DEV)
+    res, stats = _timed_batch(lambda: solve_batched(
+        fns, starts, HS65_DIMS, et.Options(), tols, dtype=dtype))
+    f = res.f.double().cpu().numpy()
+    ec = res.exit_code.cpu().numpy()
+    assert res.x.shape == (B, 3) and np.all(np.isfinite(f))
+    matched = np.abs(f - HS65_FSTAR) < 1e-4
+    share = float(np.mean(matched & (ec > 0)))
+    assert share >= 0.99, (share, _exit_code_counts(ec))
+    stats.update({"problem": "hs65", "lanes": B, "dtype": "float32",
+                  "share_at_optimum_and_converged": share,
+                  "share_at_optimum": float(np.mean(matched)),
+                  "exit_codes": _exit_code_counts(ec),
+                  "max_iterations": int(res.n_iter.max()),
+                  "solves_per_second": B / stats["seconds_per_batch_solve"]})
+    return stats
+
+
+def batched_ode_fit():
+    B, dtype = ODE_LANES, torch.float32
+    model = et.CnlsModel(**ode_fit.model_kwargs())
+    cons, jac = build_constraint_functions(model, DEV)
+    assert total_nb_constraints(model) == ODE_DIMS.l
+    fns = Functions(res=ode_fit.residuals_data,
+                    jac_res=torch.func.jacfwd(ode_fit.residuals_data),
+                    cons=lambda x, y: cons(x), jac_cons=lambda x, y: jac(x))
+    opts = et.Options(second_derivatives=False)
+    tols = et.Tols.for_dtype(dtype, DEV)
+    starts = ode_fit.perturbed_starts(B)
+    ys = ode_fit.scenario_observations(B).astype(np.float32)
+    res, stats = _timed_batch(lambda: solve_batched(
+        fns, starts, ODE_DIMS, opts, tols, dtype=dtype, data=ys))
+    f = res.f.double().cpu().numpy()
+    ec = res.exit_code.cpu().numpy()
+    assert res.x.shape == (B, ODE_DIMS.n)
+    miss = ~(f < 1e-3)
+    share = float(np.mean(~miss))
+    assert share >= 0.99, (share, _exit_code_counts(ec[miss]))
+    stats.update({"problem": "ode_fit", "lanes": B, "dtype": "float32",
+                  "share_f_below_1e-3": share,
+                  "share_f_below_1e-3_and_converged":
+                      float(np.mean(~miss & (ec > 0))),
+                  "exit_codes": _exit_code_counts(ec),
+                  "miss_by_exit_code": _exit_code_counts(ec[miss]),
+                  "solves_per_second": B / stats["seconds_per_batch_solve"]})
+    # the lanes that missed or did not converge, re-solved at float64
+    esc = miss | (ec <= 0)
+    t0 = time.time()
+    res_e = solve_batched(fns, starts, ODE_DIMS, opts, tols, dtype=dtype,
+                          data=ys, escalate_mask=torch.as_tensor(esc))
+    torch.cuda.synchronize()
+    f_e = res_e.f.double().cpu().numpy()
+    ec_e = res_e.exit_code.cpu().numpy()
+    miss_e = ~(f_e < 1e-3)
+    assert int(res_e.escalated.sum()) == int(esc.sum())
+    stats["escalated"] = {
+        "lanes": int(esc.sum()),
+        "seconds_solve_plus_escalation": time.time() - t0,
+        "share_f_below_1e-3": float(np.mean(~miss_e)),
+        "share_f_below_1e-3_and_converged":
+            float(np.mean(~miss_e & (ec_e > 0))),
+        "miss_by_exit_code": _exit_code_counts(ec_e[miss_e])}
+    return stats
+
+
+def batch_lanes_equal_single():
+    """Four lanes of a float64 HS65 batch against ``core_solve`` from the
+    same starts, both on the card."""
+    dtype = torch.float64
+    fns, starts = _hs65_batch(dtype, 8, seed=1)
+    tols = et.Tols.for_dtype(dtype, DEV)
+    res = solve_batched(fns, starts, HS65_DIMS, et.Options(), tols,
+                        dtype=dtype)
+    out = []
+    for i in range(4):
+        one = et.core_solve(fns, torch.tensor(starts[i]), HS65_DIMS,
+                            et.Options(), tols, dtype=dtype)
+        row = {"lane": i, "exit_code": int(res.exit_code[i]),
+               "single_exit_code": one.exit_code,
+               "n_iter": int(res.n_iter[i]), "single_n_iter": one.n_iter,
+               "max_abs_dx": float((res.x[i] - one.x).abs().max()),
+               "abs_df": abs(float(res.f[i]) - one.f)}
+        assert row["exit_code"] == row["single_exit_code"], row
+        assert row["n_iter"] == row["single_n_iter"], row
+        assert row["max_abs_dx"] <= LANE_SINGLE_X_ATOL, row
+        out.append(row)
+    return out
+
+
+def profile_solve(solve):
+    """One warm solve under torch.profiler: wall seconds, the sum of
+    device kernel time, the busy share, and the top kernels by name."""
     from torch.profiler import ProfilerActivity, profile
-    kw = chained_rosenbrock(1000)
-    et.solve(et.CnlsModel(**kw), dtype=torch.float32)
+    solve()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        et.solve(et.CnlsModel(**kw), dtype=torch.float32)
+        solve()
         torch.cuda.synchronize()
         wall = time.time() - t0
     rows = [(e.key, getattr(e, "device_time_total", 0.0) or
@@ -322,6 +602,31 @@ def profile_cr1000():
                             for k, us, n in rows[:12]]}
 
 
+def _batched_kernel_entry(bcases, launches):
+    head = next(c for c in bcases if c["case"] == "J2 ode_fit"
+                and c["dtype"] == "float32")
+    errs = [c["max_abs_err"] for c in bcases] + \
+        [c["recon_rel_err"] for c in bcases if c["dtype"] == "float32"]
+    return {
+        "name": "cpqr_batched_packed", "route": "cuda",
+        "source": "enlsip_tpu_torch/csrc/cpqr_batched.cu",
+        "replaces": "enlsip_tpu/ops/pallas_batched_qr.py:43",
+        "launches": launches,
+        "max_abs_err": max(errs),
+        "tolerance": "float64: perm equal, packed R/tails/tau within 1e-9 "
+                     "relative, ||QR - M[:,perm]|| <= 1e-12 ||M|| per lane; "
+                     "float32: ||QR - M[:,perm]|| <= 1e-4 ||M|| per lane, "
+                     "perm equal on the graded batch",
+        "ms": head["ms"], "kernel_only_ms": head["kernel_only_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "timed_at": "10000 x 40x10 float32 (J2 of the ODE fit); ms is the "
+                    "wrapper's call with its layout copies, kernel_only_ms "
+                    "the launch alone",
+        "cases": bcases}
+
+
 def main() -> None:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -335,9 +640,11 @@ def main() -> None:
                     "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))}})
 
     cases = check_kernels()
+    bcases = check_batched_kernels()
     l2_rate = l2_copy_rate()
     if "--kernels-only" in sys.argv:
-        emit({"kernel_cases": cases, "l2_copy_GBps": l2_rate})
+        emit({"kernel_cases": cases, "batched_kernel_cases": bcases,
+              "l2_copy_GBps": l2_rate})
         return
 
     solves = [solve_cr1000(torch.float32)]
@@ -345,10 +652,26 @@ def main() -> None:
     solves.append(solve_cr1000(torch.float64))
     emit({"solve": solves})
     emit({"small": solve_small()})
+    hs65_stats = batched_hs65()
+    emit({"batched_hs65": hs65_stats})
+    ode_stats = batched_ode_fit()
+    emit({"batched_ode_fit": ode_stats})
+    emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
     if "--profile" in sys.argv:
-        emit({"profile": profile_cr1000()})
+        kw = chained_rosenbrock(1000)
+        emit({"profile": profile_solve(lambda: et.solve(
+            et.CnlsModel(**kw), dtype=torch.float32))})
+        fns, starts = _hs65_batch(torch.float32, HS65_LANES)
+        tols = et.Tols.for_dtype(torch.float32, DEV)
+        emit({"profile_batched_hs65": profile_solve(lambda: solve_batched(
+            fns, starts, HS65_DIMS, et.Options(), tols,
+            dtype=torch.float32))})
 
     assert launches_main > 0, "the main path never launched cpqr_hopper"
+    launches_batched = (hs65_stats["cpqr_batched_launches"]
+                        + ode_stats["cpqr_batched_launches"])
+    assert launches_batched > 0, \
+        "the batched paths never launched cpqr_batched_packed"
     head = next(c for c in cases
                 if c["main_path"] and c["dtype"] == "float32"
                 and c["nsteps"] == 998)
@@ -369,7 +692,7 @@ def main() -> None:
         "library_ms": None,
         "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000)",
         "l2_copy_GBps": l2_rate,
-        "cases": cases}]})
+        "cases": cases}, _batched_kernel_entry(bcases, launches_batched)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

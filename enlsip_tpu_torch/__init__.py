@@ -8,7 +8,10 @@ capabilities of the Julia reference UncertainLab/Enlsip.jl.  This
 package is the counterpart of the JAX package ``enlsip_tpu`` module by
 module; it imports ``torch`` and nothing of JAX.
 
-Entry points run on the CUDA device unless the caller passes
+Entry points — ``solve(CnlsModel)``, ``core_solve``, and in
+``enlsip_tpu_torch.parallel`` the batched ``solve_batched`` /
+``solve_multistart`` (B same-shaped instances in lockstep) — run on the
+CUDA device unless the caller passes
 ``device="cpu"``; with no device and no such argument they raise.
 """
 

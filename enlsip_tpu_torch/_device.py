@@ -36,6 +36,12 @@ def to_host(v):
     return v
 
 
+def to_host_list(v) -> list:
+    """Read a small tensor back as a list in one transfer (counted once)."""
+    _Readbacks.count += 1
+    return v.tolist()
+
+
 def readback_count() -> int:
     return _Readbacks.count
 

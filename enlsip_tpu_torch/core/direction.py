@@ -5,9 +5,11 @@ are the reference's.  "Dimensions" here are 1-based counts (as in the
 reference); array buffers are 0-indexed, so count k reads buffer index
 k-1.
 
-The decision functions are free of control flow; only
-:func:`search_direction_analysis` takes a host branch, on the method
-code, and evaluates that one branch.
+The decision functions and the three direction branches are free of
+control flow and take one solve's tensors or a batch's (leading lane
+axes).  :func:`search_direction_analysis` is the single solve's switch:
+it reads the method code back and evaluates that one branch; a batch
+switches in ``core/batched.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .._device import to_host
+from .._lanes import ex, put, take1
 from ..ops.qr import prefix_norm, solve_upper
 from .subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
                          GNResult, _embed, factor_l11, j2_transform_d,
@@ -60,12 +63,13 @@ def check_gn_direction(b1nrm, d1nrm, d1nrm_as_km1, dnrm, active_c_sum,
     nonlin_k = torch.sqrt(d1nrm ** 2 + active_c_sum)
     nonlin_km1 = torch.sqrt(d1nrm_as_km1 ** 2 + active_c_sum)
 
-    slot = torch.arange(lam.shape[0], device=dev)
-    ineq = (slot >= q) & (slot < t)
+    slot = torch.arange(lam.shape[-1], device=dev)
+    ineq = (slot >= ex(q)) & (slot < ex(t))
     rows = (1.0 / diag_scale) if scaling else diag_scale
     sqr_eps = math.sqrt(eps_rel)
     lagrange_mult_cond = (
-        torch.any(ineq & (lam * rows >= -sqr_eps)) & torch.any(ineq & (lam < 0)))
+        torch.any(ineq & (lam * rows >= -sqr_eps), dim=-1) &
+        torch.any(ineq & (lam < 0), dim=-1))
     to_reduce = (t > q) & lagrange_mult_cond
     to_reduce = to_reduce | ((l - t > 0) & (inact_cx_min < delta))
 
@@ -89,18 +93,18 @@ def _pregn(sd, sd_nrm, mindim, rh, rh_nrm, rank) -> torch.Tensor:
     """PREGN.  sd/rh are cumulative-norm buffers (0-indexed: count k ->
     index k-1); all dims are counts."""
     tau_max, rho_min = 0.2, 0.5
-    C = sd.shape[0]
+    C = sd.shape[-1]
     pm1 = rank - 1
     counts = torch.arange(1, C + 1, device=sd.device)
-    cond = (sd >= tau_max * sd_nrm) | (rh <= rho_min * rh_nrm)
-    window = (counts > mindim) & (counts <= pm1)
+    cond = (sd >= tau_max * ex(sd_nrm)) | (rh <= rho_min * ex(rh_nrm))
+    window = (counts > ex(mindim)) & (counts <= ex(pm1))
     # Descending walk from pm1 while cond holds: final k = pm1 minus the
     # length of the trailing all-true run of cond within the window.
     flags = window & cond
-    inwin_rev = torch.flip(counts <= pm1, (0,))
-    run = torch.cumprod((torch.flip(flags, (0,)) | ~inwin_rev).to(torch.int64),
-                        dim=0)
-    trailing = torch.sum(run * inwin_rev.to(torch.int64))
+    inwin_rev = torch.flip(counts <= ex(pm1), (-1,))
+    run = torch.cumprod((torch.flip(flags, (-1,)) | ~inwin_rev).to(torch.int64),
+                        dim=-1)
+    trailing = torch.sum(run * inwin_rev.to(torch.int64), dim=-1)
     k = torch.maximum(pm1 - trailing, mindim)
     sugg = torch.where(k > mindim, k, torch.maximum(mindim, pm1))
     return torch.where(mindim > pm1, mindim, sugg)
@@ -111,10 +115,10 @@ def _presub(sd, rh, rh_nrm, c1, rank, previous_dim, progress,
             ) -> torch.Tensor:
     """PRESUB."""
     stepb, pgb1, pgb2, predb, rlenb, c2 = 0.2, 0.3, 0.1, 0.7, 2.0, 100.0
-    C = sd.shape[0]
+    C = sd.shape[-1]
 
     def at(buf, count):  # 1-based count -> value, clamped
-        return buf[torch.clamp(count - 1, 0, C - 1)]
+        return take1(buf, torch.clamp(count - 1, 0, C - 1))
 
     bad_step = (previous_alpha < stepb) & \
                (progress <= pgb1 * predicted_linear_progress ** 2) & \
@@ -141,29 +145,29 @@ def determine_solving_dim(previous_dim, rank, predicted_linear_progress,
                           previous_alpha, restart) -> torch.Tensor:
     """DIMUPP.  ``diagR``: diagonal buffer of the triangular factor;
     ``y``: rhs buffer.  Returns the new dimension (count)."""
-    C = diagR.shape[0]
+    C = diagR.shape[-1]
     dev = diagR.device
     i = torch.arange(C, device=dev)
     previous_dim = torch.as_tensor(previous_dim, device=dev)
     rank = torch.as_tensor(rank, device=dev)
     restart = torch.as_tensor(restart, dtype=torch.bool, device=dev)
-    yC = y[:C]
-    live = i < rank
+    yC = y[..., :C]
+    live = i < ex(rank)
     zero = torch.zeros_like(yC)
-    sd = torch.sqrt(torch.cumsum(torch.where(live, yC * yC, zero), dim=0))
+    sd = torch.sqrt(torch.cumsum(torch.where(live, yC * yC, zero), dim=-1))
     safe_diag = torch.where(diagR.abs() > 0, diagR, torch.ones_like(diagR))
     rhterm = torch.where(live, yC / safe_diag, zero)
-    rh = torch.sqrt(torch.cumsum(rhterm * rhterm, dim=0))
+    rh = torch.sqrt(torch.cumsum(rhterm * rhterm, dim=-1))
     last = torch.clamp(rank - 1, 0, C - 1)
-    sd_nrm = sd[last]
-    rh_nrm = rh[last]
+    sd_nrm = take1(sd, last)
+    rh_nrm = take1(rh, last)
     # mindim maximizes psi_i = sqrt(sum_{j<=i} sd_j^2) * |R_ii| — the
     # reference accumulates the SQUARED CUMULATIVE norms, reproduced
     # verbatim.
-    dsum = torch.cumsum(torch.where(live, sd * sd, zero), dim=0)
+    dsum = torch.cumsum(torch.where(live, sd * sd, zero), dim=-1)
     psi = torch.where(live, torch.sqrt(dsum) * diagR.abs(),
                       torch.full_like(zero, -math.inf))
-    mindim = torch.argmax(psi) + 1  # first max, count
+    mindim = torch.argmax(psi, dim=-1) + 1  # first max, count
 
     was_gn = (previous_dim == rank) | (previous_dim <= 0)
     sugg_gn = _pregn(sd, sd_nrm, mindim, rh, rh_nrm, rank)
@@ -200,21 +204,20 @@ def choose_subspace_dimensions(rx_sum, rx, active_cx_sum, t, rankJ2, rankA,
     # d = -(rx + J1 p1), transformed by Q3^T.  When rankJ2 == 0, DIMUPP
     # returns 0 without reading d, so the transformed vector can be used
     # unconditionally.
-    dp1 = solve_upper(F_L11.R[:ka, :ka], b[:ka], dimA)
-    p1_full = torch.zeros_like(dp1)
-    p1_full[F_L11.perm] = dp1
-    p1 = torch.where(torch.arange(ka, device=dev) < rankA, p1_full,
+    dp1 = solve_upper(F_L11.R[..., :ka, :ka], b[..., :ka], dimA)
+    p1_full = put(torch.zeros_like(dp1), F_L11.perm, dp1)
+    p1 = torch.where(torch.arange(ka, device=dev) < ex(rankA), p1_full,
                      torch.zeros_like(p1_full))
     d = j2_transform_d(F_J2, JQ1, _embed(p1, n), rx)
 
     previous_dimJ2 = prev.dimJ2.abs() + prev.t - t
     nrm_d_asprev = prefix_norm(d, torch.clamp(previous_dimJ2, 0, m))
-    nrm_d = torch.sqrt(torch.sum(d * d))
+    nrm_d = torch.sqrt(torch.sum(d * d, dim=-1))
     residual_progress = prev.rx_sum - rx_sum
     kk = min(m, n)
     dimJ2 = determine_solving_dim(previous_dimJ2, rankJ2, nrm_d,
                                   residual_progress, nrm_d_asprev,
-                                  F_J2.diag, d[:kk], prev.alpha, restart)
+                                  F_J2.diag, d[..., :kk], prev.alpha, restart)
 
     keep = (~restart) & (prev.alpha >= alpha_low)
     dimA = torch.where(keep, torch.maximum(dimA, previous_dimA), dimA)
@@ -232,16 +235,17 @@ def analysis_decide(cx, act: ActiveConstraint, active_cx_sum, gn: GNResult,
     m, tmax = dims.m, dims.tmax
     rankA, rankJ2 = gn.rankA, gn.rankJ2
     nrm_b1 = prefix_norm(gn.b, rankA)         # dimA == rankA here
-    nrm_d = torch.sqrt(torch.sum(gn.d * gn.d))
+    nrm_d = torch.sqrt(torch.sum(gn.d * gn.d, dim=-1))
     nrm_d1 = prefix_norm(gn.d, rankJ2)
     prev_dimJ2m1 = prev.dimJ2 + prev.t - t - 1
     nrm_d1_asprev = prefix_norm(gn.d, torch.clamp(prev_dimJ2m1, 0, m))
 
     # min over inactive constraints of cx (GNDCHK's any(< delta))
-    active = torch.zeros(dims.l, dtype=torch.bool, device=cx.device)
-    active[view.active_list[:tmax]] = act.valid
+    active = put(torch.zeros(dims.l, dtype=torch.bool, device=cx.device),
+                 view.active_list[..., :tmax], act.valid)
     inact_cx_min = torch.min(torch.where(active,
-                                         torch.full_like(cx, math.inf), cx))
+                                         torch.full_like(cx, math.inf), cx),
+                             dim=-1).values
 
     return check_gn_direction(
         nrm_b1, nrm_d1, nrm_d1_asprev, nrm_d, active_cx_sum, iter_number,
@@ -269,12 +273,12 @@ def subspace_direction(rx, rx_sum, act: ActiveConstraint, active_cx_sum,
 def newton_direction(res_fn: Callable, cons_fn: Callable, x, rx, lam,
                      view: WorkingView, act: ActiveConstraint, F_A: FactorA,
                      F_L11: FactorL11, gn: GNResult, t, dims: Dims,
-                     rdims=None):
+                     rdims=None, hess=None):
     """ANALYS's Newton branch when second derivatives are allowed."""
     n = rdims_or(rdims, dims).n
     p, err = newton_search_direction(res_fn, cons_fn, x, rx, lam, view, act,
                                      F_A, F_L11, gn.JQ1, gn.rankA, t, dims,
-                                     rdims)
+                                     rdims, hess)
     ec = torch.where(err, -3, 0)
     return p, gn.b, gn.d, -t, t - n, torch.full_like(ec, 2), ec
 
@@ -303,7 +307,7 @@ def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
                               rdims=None) -> AnalysResult:
     """ANALYS.  The method code is read back and ONE of the three
     branches (GN, subspace, Newton) is evaluated on the host's choice."""
-    rx_sum = torch.sum(rx * rx)
+    rx_sum = torch.sum(rx * rx, dim=-1)
     rankA, rankJ2 = gn.rankA, gn.rankJ2
 
     method_code, beta = analysis_decide(

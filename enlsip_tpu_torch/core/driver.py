@@ -20,7 +20,21 @@ Design notes:
 * The loop runs on the host and takes a Python branch wherever the
   algorithm branches, evaluating one branch only; every such branch
   reads a scalar back from the device (``_device.to_host`` counts
-  them).  The per-iteration math functions stay free of control flow.
+  them).
+* What is and is not free of control flow: the multiplier estimates,
+  SIGNCH, GNDCHK/DIMUPP, TERCRI, UPBND and the three direction branches
+  are pure tensor functions.  The factorization stage (F_L11 only where
+  A is rank-deficient), WRKSET's second round, EUCMOD, EVADD and the
+  whole line search DO branch and loop on data.  They do so through
+  ``_lanes.cond`` / ``_lanes.while_loop``, which read a 0-d predicate
+  back and evaluate one side for one solve, and run a batch in lockstep
+  (skip the side no live lane takes, else compute both and select per
+  lane).  So every function of this module takes either one solve's
+  tensors or a batch's with a leading lane axis; ``lanes`` is the
+  batch's live-lane mask.  The per-solve switch on the method code and
+  the host-int bookkeeping live in :func:`iterate_body` /
+  :func:`solve`; their batched counterparts are in ``core/batched.py``
+  and ``parallel/batch.py``.
 """
 
 from __future__ import annotations
@@ -31,6 +45,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import resolve_device, to_host
+from .._lanes import cond, dot, ex, mtv, norm, take, take1
 from ..ops.qr import pseudo_rank
 from .direction import search_direction_analysis
 from .linesearch import compute_steplength
@@ -40,7 +55,7 @@ from .subproblem import (ActiveConstraint, FactorA, FactorL11, GNResult,
                          second_mult_estimate, zeros_factor_l11)
 from .termination import check_termination
 from .types import (Carry, Counters, Dims, Options, PrevIter, Tols,
-                    WorkingView, matmul_precision_scope, rdims_or, scalar,
+                    WorkingView, matmul_precision_scope, rdims_or,
                     working_view)
 from .working_set import (check_constraint_deletion,
                           evaluate_violated_constraints, init_working_set,
@@ -79,34 +94,36 @@ class WorkingSetRound(NamedTuple):
     gn: GNResult
     lam: torch.Tensor
     grad_res: torch.Tensor
-    deleted: bool
+    deleted: object          # host bool, or a per-lane bool tensor
     index_del: torch.Tensor
 
 
-def _factor_stage1(mask, A, cx, gf, dims: Dims, scaling: bool, eps_rank):
+def _factor_stage1(mask, A, cx, gf, dims: Dims, scaling: bool, eps_rank,
+                   lanes=None):
     """Gather/scale the active set and factor A_act^T (F_A + rank), then
     F_L11 — only consumed on the rank-deficient (stabilized) path, so a
-    host branch computes it there and hands the full-rank GN path a
-    zeros placeholder whose downstream products are masked away.
-    (ANALYS's subspace branch, which needs F_L11 when rankA == t,
-    recomputes it itself.)"""
+    branch computes it there (for a batch: when some live lane is
+    rank-deficient) and hands the full-rank GN path a zeros placeholder
+    whose downstream products are masked away.  (ANALYS's subspace
+    branch, which needs F_L11 when rankA == t, recomputes it itself.)"""
     view = working_view(mask)
     t = view.t
     act = gather_active(A, cx, view, dims, scaling)
     F_A = factor_active(act, gf, t, dims)
     rankA = pseudo_rank(F_A.diag, t, eps_rank)
-    if bool(to_host(rankA < t)):
-        F_L11 = factor_l11(F_A, act, t)
-    else:
-        F_L11 = zeros_factor_l11(dims, F_A.R.dtype, F_A.R.device)
+    F_L11 = cond(rankA < t,
+                 lambda: factor_l11(F_A, act, t),
+                 lambda: zeros_factor_l11(dims, F_A.R.dtype, F_A.R.device,
+                                          mask.shape[:-1]),
+                 lanes)
     return view, t, act, F_A, rankA, F_L11
 
 
 def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
-                   eps_rank, rdims=None):
+                   eps_rank, rdims=None, lanes=None):
     """One full factorization round: gather/scale -> F_A -> (F_L11) -> GN."""
     view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
-                                                     scaling, eps_rank)
+                                                     scaling, eps_rank, lanes)
     gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
                              rdims)
     return view, t, act, F_A, F_L11, gn
@@ -152,10 +169,11 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
     # Second-order estimate round: only when the factorizations are
     # full-rank.
     full_rank = (t == gn.rankA) & \
-        (gn.rankJ2 == torch.clamp(rd.n - gn.rankA, max=rd.m))
+        (gn.rankJ2 == torch.minimum(
+            rd.n - gn.rankA, torch.as_tensor(rd.m, device=t.device)))
     lam2 = second_mult_estimate(F_A, gn.JQ1, rx, J, gn.p, t, act, dims,
                                 scaling)
-    lam_sel = torch.where(full_rank, lam2, lam)
+    lam_sel = torch.where(ex(full_rank), lam2, lam)
     s2 = check_constraint_deletion(rd.q, lam2, act.valid, t, scaling,
                                    act.diag_scale,
                                    torch.zeros((), dtype=rx.dtype,
@@ -180,16 +198,16 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
         # float64 is untouched (dtype-static branch).
         zero_s = torch.zeros_like(act.cx_act)
         act_cx_nrm = torch.sqrt(torch.sum(torch.where(
-            act.valid, act.cx_act * act.cx_act, zero_s)))
+            act.valid, act.cx_act * act.cx_act, zero_s), dim=-1))
         stationary = (act_cx_nrm < tols.eps_c) & \
-            (grad_res < torch.sqrt(tols.eps_rel) * (1 + torch.linalg.norm(gf)))
+            (grad_res < torch.sqrt(tols.eps_rel) * (1 + norm(gf)))
         inact = ~mask
         inact_ok = torch.all(torch.where(inact, cx > 0.0,
-                                         torch.ones_like(inact)))
-        stationary = stationary & ((torch.sum(inact) == 0) | inact_ok)
+                                         torch.ones_like(inact)), dim=-1)
+        stationary = stationary & ((torch.sum(inact, dim=-1) == 0) | inact_ok)
         sigma_min, lam_abs_max = minmax_lagrangian_mult(
             lam, act.valid, t, rd.q, scaling, act.diag_scale)
-        factor = torch.where(t == 1, 1.0 + torch.dot(rx, rx), lam_abs_max)
+        factor = torch.where(t == 1, 1.0 + dot(rx, rx), lam_abs_max)
         neg_block = (t > rd.q) & (sigma_min < tols.eps_rel * factor)
         deadlock = (stationary & neg_block & ~full_rank & (s2 >= 0) &
                     stall_hint)
@@ -200,20 +218,19 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
 
 
 def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
-               scaling: bool, eps_rank, rdims=None):
+               scaling: bool, eps_rank, rdims=None, lanes=None):
     """WRKSET second-order deletion round: drop the suggested constraint
     and re-run the full factorization chain."""
     s2c = torch.clamp(r1.s2, min=0)
-    gidx = r1.view.active_list[s2c]
-    mask2 = mask.clone()
-    mask2[gidx] = False          # in-place index assignment on the copy
+    gidx = take1(r1.view.active_list, s2c)
+    mask2 = mask & (torch.arange(dims.l, device=mask.device) != ex(gidx))
     view2, t2, act2, F_A2, F_L11_2, gn2 = _factor_and_gn(
-        mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims)
+        mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims, lanes)
     # Compact lam2: new slot j maps to old slot j (+1 past s2).
     tmax = dims.tmax
     j = torch.arange(tmax, device=mask.device)
-    lam_c = torch.where(j < s2c, r1.lam2,
-                        r1.lam2[torch.clamp(j + 1, max=tmax - 1)])
+    lam_c = torch.where(j < ex(s2c), r1.lam2,
+                        r1.lam2[..., torch.clamp(j + 1, max=tmax - 1)])
     lam_c = torch.where(act2.valid, lam_c, torch.zeros_like(lam_c))
     return WorkingSetRound(mask=mask2, view=view2, t=t2, act=act2, F_A=F_A2,
                            F_L11=F_L11_2, gn=gn2, lam=lam_c,
@@ -221,24 +238,39 @@ def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
                            index_del=gidx)
 
 
-def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
-                       opts: Options, tols: Tols, rdims=None,
-                       stall_hint=True) -> WorkingSetRound:
-    """WRKSET, see the module docstring for the branch analysis."""
-    scaling = opts.scaling
-    eps_rank = tols.eps_rank
-    view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
-                                                     scaling, eps_rank)
-    r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
-                    tols, view, t, act, F_A, rankA, F_L11, rdims, stall_hint,
-                    opts.rank_deficient_deletion)
-    if bool(to_host(r1.do2)):
-        return _ws_round2(r1, mask, A, cx, rx, J, gf, dims, scaling,
-                          eps_rank, rdims)
+def _ws_keep(r1: WSRound1, mask) -> WorkingSetRound:
+    """WRKSET's result when the second round does not run."""
     return WorkingSetRound(mask=mask, view=r1.view, t=r1.t, act=r1.act,
                            F_A=r1.F_A, F_L11=r1.F_L11, gn=r1.gn,
                            lam=r1.lam_sel, grad_res=r1.grad_res,
                            deleted=False, index_del=r1.index_del)
+
+
+def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
+                       opts: Options, tols: Tols, rdims=None,
+                       stall_hint=True, lanes=None) -> WorkingSetRound:
+    """WRKSET, see the module docstring for the branch analysis.  For a
+    batch, round 1 always runs; F_L11 and the second-order deletion
+    round run only when some live lane (``lanes``) needs them, and the
+    other lanes keep their round-1 values."""
+    scaling = opts.scaling
+    eps_rank = tols.eps_rank
+    view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
+                                                     scaling, eps_rank, lanes)
+    r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
+                    tols, view, t, act, F_A, rankA, F_L11, rdims, stall_hint,
+                    opts.rank_deficient_deletion)
+    return cond(r1.do2,
+                lambda: _ws_round2(r1, mask, A, cx, rx, J, gf, dims, scaling,
+                                   eps_rank, rdims,
+                                   None if lanes is None else lanes & r1.do2),
+                lambda: _ws_keep(r1, mask), lanes)
+
+
+def _count(flag):
+    """A host bool or a per-lane bool tensor as an increment."""
+    return flag.to(torch.int64) if isinstance(flag, torch.Tensor) \
+        else int(flag)
 
 
 def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
@@ -247,49 +279,64 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     unrolled first iteration.  The previous-iteration snapshot fields
     only need the values the first body actually reads: alpha = 1.0,
     beta = 0, code = 1, w = INIALC weights,
-    progress = predicted_reduction = 0, x = x0."""
+    progress = predicted_reduction = 0, x = x0.
+
+    ``x0`` (n,) seeds one solve; ``x0`` (B, n) with lane-mapped ``fns``
+    seeds a batch (the host-int fields become (B,) tensors)."""
     dev = resolve_device(device)
     x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
-    rx, J, cx, A, counters = new_point(fns, x0, Counters.zeros())
+    lead = tuple(x0.shape[:-1])
+    rx, J, cx, A, counters = new_point(fns, x0, Counters.zeros(lead, dev))
     mask, w0, K = init_working_set(cx, A, x0, dims, rdims)
-    f = lambda v: scalar(v, dtype, dev)
-    i = lambda v: scalar(v, torch.int64, dev)
+    f = lambda v: torch.full(lead, v, dtype=dtype, device=dev)
+    i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
+    host = (lambda v: i(v)) if lead else (lambda v: v)
     prev = PrevIter(
-        x=x0, rx_sum=torch.dot(rx, rx), cx_sum=torch.dot(cx, cx),
-        t=torch.sum(mask), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
+        x=x0, rx_sum=dot(rx, rx), cx_sum=dot(cx, cx),
+        t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
         progress=f(0.0), predicted_reduction=f(0.0),
         rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
     return Carry(
-        x=x0, rx=rx, cx=cx, J=J, A=A, gf=J.t() @ rx, active_mask=mask, w=w0,
-        K=K, prev=prev, restart=scalar(False, torch.bool, dev),
-        index_del=i(-1), nb_newton_steps=0, nb_iter=0, exit_code=0,
-        counters=counters,
-        display=torch.zeros((opts.max_iter + 1, 5), dtype=dtype, device=dev),
-        n_display=0)
+        x=x0, rx=rx, cx=cx, J=J, A=A, gf=mtv(J, rx), active_mask=mask, w=w0,
+        K=K, prev=prev,
+        restart=torch.zeros(lead, dtype=torch.bool, device=dev),
+        index_del=i(-1), nb_newton_steps=host(0), nb_iter=host(0),
+        exit_code=host(0), counters=counters,
+        display=torch.zeros((*lead, opts.max_iter + 1, 5), dtype=dtype,
+                            device=dev),
+        n_display=host(0))
+
+
+def _stall_hint(carry: Carry, tols: Tols):
+    """D13 stall evidence (float32 only; see _ws_round1): the last two
+    steps moved x by less than eps_x relative — prev.x spans two steps,
+    same as TERCRI's x_diff."""
+    x_diff_prev = norm(carry.prev.x - carry.x)
+    return (x_diff_prev < tols.eps_x * (1.0 + norm(carry.x))) \
+        & (carry.nb_iter >= 2)
+
+
+def _active_cx_sum(wsr: WorkingSetRound, cx, dims: Dims):
+    act_idx = wsr.view.active_list[..., :dims.tmax]
+    return torch.sum(torch.where(wsr.act.valid, take(cx, act_idx) ** 2,
+                                 torch.zeros((), dtype=cx.dtype,
+                                             device=cx.device)), dim=-1)
 
 
 def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
                  tols: Tols, rdims=None) -> Carry:
-    """One full ENLSIP iteration (the reference loop body, which is also
-    its unrolled first iteration)."""
+    """One full ENLSIP iteration of ONE solve (the reference loop body,
+    which is also its unrolled first iteration)."""
     x, rx, cx, J, A, gf = (carry.x, carry.rx, carry.cx, carry.J, carry.A,
                            carry.gf)
-    rx_sum_start = torch.dot(rx, rx)
-    cx_sum_start = torch.dot(cx, cx)
+    rx_sum_start = dot(rx, rx)
+    cx_sum_start = dot(cx, cx)
 
     # --- EVSCAL + WRKSET ------------------------------------------------
-    # D13 stall evidence (float32 only; see _ws_round1): the last two
-    # steps moved x by less than eps_x relative — prev.x spans two steps,
-    # same as TERCRI's x_diff.
-    x_diff_prev = torch.linalg.norm(carry.prev.x - x)
-    stall_hint = (x_diff_prev < tols.eps_x * (1.0 + torch.linalg.norm(x))) \
-        & (carry.nb_iter >= 2)
     wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
                              carry.index_del, dims, opts, tols, rdims,
-                             stall_hint)
-    act_idx = wsr.view.active_list[:dims.tmax]
-    active_cx_sum = torch.sum(torch.where(wsr.act.valid, cx[act_idx] ** 2,
-                                          torch.zeros_like(cx[:1])))
+                             _stall_hint(carry, tols))
+    active_cx_sum = _active_cx_sum(wsr, cx, dims)
 
     # --- ANALYS ----------------------------------------------------------
     ana = search_direction_analysis(
@@ -303,35 +350,40 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
 
 def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
                     tols: Tols, wsr: WorkingSetRound, ana, active_cx_sum,
-                    rx_sum_start, cx_sum_start, rdims=None) -> Carry:
+                    rx_sum_start, cx_sum_start, rdims=None,
+                    lanes=None) -> Carry:
     """Everything after ANALYS: STPLNG, the step, new_point, TERCRI and
-    the bookkeeping (the reference's loop tail)."""
+    the bookkeeping (the reference's loop tail).  One solve keeps its
+    codes and counts as host ints and does the bookkeeping under a host
+    branch; a batch (``carry.x`` (B, n), lane-mapped ``fns``, ``lanes``
+    the live lanes) keeps them as (B,) tensors and selects per lane."""
     x, rx, cx, J, A = carry.x, carry.rx, carry.cx, carry.J, carry.A
-    counters = carry.counters
+    batched = x.ndim > 1
     t = wsr.t
-    act_idx = wsr.view.active_list[:dims.tmax]
+    act_idx = wsr.view.active_list[..., :dims.tmax]
     # The reference bumps the residual/constraint counters through its
     # finite-difference Hessians; the AD Hessians count as one each.
-    if ana.newton_taken:
-        counters = counters.bump(res=1, cons=1)
-    nb_newton = carry.nb_newton_steps + (1 if ana.newton_taken else 0)
+    n_newton = _count(ana.newton_taken)
+    counters = carry.counters.bump(res=n_newton, cons=n_newton)
+    nb_newton = carry.nb_newton_steps + n_newton
 
     # --- STPLNG ----------------------------------------------------------
-    res_trial = lambda xx, pp: (lambda a: fns.res(xx + a.to(xx.dtype) * pp))
-    code = int(to_host(ana.code))
+    res_trial = lambda xx, pp: (
+        lambda a: fns.res(xx + ex(a.to(xx.dtype)) * pp))
+    code = ana.code if batched else int(to_host(ana.code))
     sl = compute_steplength(
         res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
         ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
         carry.prev, carry.K, wsr.mask, dims, opts.weight_code, counters,
         opts.linesearch_max_refine, opts.gac_max_halvings,
-        opts.eucmod_max_passes, opts.scaling)
+        opts.eucmod_max_passes, opts.scaling, lanes)
     counters = sl.counters
 
     # --- step + new point --------------------------------------------
-    x_new = x + sl.alpha * ana.p
+    x_new = x + ex(sl.alpha) * ana.p
     rx_new, J_new, cx_new, A_new, counters = new_point(fns, x_new, counters)
-    gf_new = J_new.t() @ rx_new
-    rx_sum_new = torch.dot(rx_new, rx_new)
+    gf_new = mtv(J_new, rx_new)
+    rx_sum_new = dot(rx_new, rx_new)
     restart_new = ana.error_code < 0
 
     sigma_min, lam_abs_max = minmax_lagrangian_mult(
@@ -342,27 +394,40 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     # so the prev_iter.x TERCRI reads in body k is the PREVIOUS body's
     # starting point: x_diff spans TWO steps.  carry.prev.x holds exactly
     # that point (and x0 in the first body).
-    exit_code = int(to_host(check_termination(
+    exit_code = check_termination(
         ana.p, ana.code, restart_new, wsr.deleted, ana.d, ana.dimJ2,
         wsr.grad_res, wsr.act.cx_act, wsr.act.A_act, wsr.act.valid, t,
         x_new, carry.prev.x, cx_new, wsr.mask, rx_sum_new, gf_new,
         carry.nb_iter, opts.max_iter, tols, ana.error_code, sigma_min,
-        lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)))
+        lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)
+    if not batched:
+        exit_code = int(to_host(exit_code))
 
     # --- bookkeeping: display, EVADD, prev snapshot -------------------
-    record = carry.nb_iter == 0 or exit_code == 0
-    progress_out = sl.progress if sl.updated_progress else carry.prev.progress
-    predred_out = (sl.predicted_reduction if sl.updated_progress
-                   else carry.prev.predicted_reduction)
+    first = carry.nb_iter == 0
+    record = first | (exit_code == 0)
+    upd = torch.as_tensor(sl.updated_progress, device=x.device)
+    progress_out = torch.where(upd, sl.progress, carry.prev.progress)
+    predred_out = torch.where(upd, sl.predicted_reduction,
+                              carry.prev.predicted_reduction)
     display, mask_final = carry.display, wsr.mask
-    if record:
-        objective = rx_sum_start if carry.nb_iter == 0 else rx_sum_new
-        # in-place row assignment: the display buffer belongs to the carry
-        display[carry.nb_iter] = torch.stack([
-            objective, active_cx_sum, torch.linalg.norm(ana.p), sl.alpha,
-            progress_out])
-        mask_final, _added = evaluate_violated_constraints(
+    if batched or record:
+        objective = torch.where(first, rx_sum_start, rx_sum_new) if batched \
+            else (rx_sum_start if first else rx_sum_new)
+        row = torch.stack([objective, active_cx_sum, norm(ana.p), sl.alpha,
+                           progress_out], dim=-1)
+        mask_add, _added = evaluate_violated_constraints(
             cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
+        if batched:
+            slot = torch.arange(display.shape[-2], device=x.device)
+            here = ex(record) & (slot == ex(carry.nb_iter))
+            display = torch.where(here[..., None], row[..., None, :], display)
+            mask_final = torch.where(ex(record), mask_add, wsr.mask)
+        else:
+            # in-place row assignment: the display buffer belongs to the
+            # carry
+            display[carry.nb_iter] = row
+            mask_final = mask_add
 
     prev_new = PrevIter(
         x=x, rx_sum=rx_sum_start, cx_sum=cx_sum_start, t=t, alpha=sl.alpha,
@@ -375,9 +440,9 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
         active_mask=mask_final, w=sl.w, K=sl.K, prev=prev_new,
         restart=restart_new, index_del=wsr.index_del,
         nb_newton_steps=nb_newton,
-        nb_iter=carry.nb_iter + (1 if record else 0),
+        nb_iter=carry.nb_iter + _count(record),
         exit_code=exit_code, counters=counters, display=display,
-        n_display=carry.n_display + (1 if record else 0))
+        n_display=carry.n_display + _count(record))
 
 
 class SolveResult(NamedTuple):
@@ -419,7 +484,7 @@ def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
             carry = iterate_body(carry, fns, dims, opts, tols)
             if on_iteration is not None:
                 on_iteration(carry)
-        f = float(torch.dot(carry.rx, carry.rx))
+        f = float(dot(carry.rx, carry.rx))
     return SolveResult(exit_code=carry.exit_code, x=carry.x, f=f,
                        n_iter=carry.nb_iter, display=carry.display,
                        n_display=carry.n_display, counters=carry.counters,

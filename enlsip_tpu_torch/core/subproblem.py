@@ -13,7 +13,9 @@ Counterpart of ``enlsip_tpu/core/subproblem.py``:
   contractions through ``torch.func.hessian``)
 
 All matrices live in fixed max-size buffers; the working set enters as
-gathered, masked rows; ranks/dims are 0-d tensors.  Q factors stay
+gathered, masked rows; ranks/dims are per-lane tensors (0-d for one
+solve, ``(B,)`` for a batch), and every vector/matrix may carry leading
+lane axes (see ``_lanes.py``).  Q factors stay
 implicit: the pivoted QR (ops/blocked_qr.py) returns compact-WY
 reflectors, so J @ Q1, Q^T v and Q v are a few matrix products each.
 
@@ -27,6 +29,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .._lanes import ex, mtv, mv, put, take, take_rows
 from ..ops.blocked_qr import (CPQRF, cpqr_blocked, q_apply, qt_apply,
                               right_q_apply)
 from ..ops.qr import invperm, pseudo_rank, solve_lower, solve_upper
@@ -99,7 +102,7 @@ def j2_transform_d(F_J2: FactorJ2, JQ1: torch.Tensor, p1n: torch.Tensor,
                    rx: torch.Tensor) -> torch.Tensor:
     """d = Q3^T (-J1 p1 - rx) (J1 p1 == JQ1 @ p1n since p1n is zero past
     the leading slots)."""
-    return qt_apply(F_J2.f, -(JQ1 @ p1n) - rx)
+    return qt_apply(F_J2.f, -mv(JQ1, p1n) - rx)
 
 
 class GNResult(NamedTuple):
@@ -115,9 +118,7 @@ class GNResult(NamedTuple):
 
 def _embed(v: torch.Tensor, size: int) -> torch.Tensor:
     """``v`` in the leading slots of a zero vector of length ``size``."""
-    out = v.new_zeros(size)
-    out[:v.shape[0]] = v
-    return out
+    return torch.nn.functional.pad(v, (0, size - v.shape[-1]))
 
 
 def gather_active(A: torch.Tensor, cx: torch.Tensor, view: WorkingView,
@@ -126,15 +127,16 @@ def gather_active(A: torch.Tensor, cx: torch.Tensor, view: WorkingView,
     buffers and apply EVSCAL row scaling."""
     tmax = dims.tmax
     eps = torch.finfo(A.dtype).eps
-    rows_idx = view.active_list[:tmax]
-    valid = torch.arange(tmax, device=A.device) < view.t
-    A_act = torch.where(valid[:, None], A[rows_idx], torch.zeros_like(A[:1]))
-    cx_act = torch.where(valid, cx[rows_idx], torch.zeros_like(cx[:1]))
-    row_nrm = torch.sqrt(torch.sum(A_act * A_act, dim=1))
+    rows_idx = view.active_list[..., :tmax]
+    valid = torch.arange(tmax, device=A.device) < ex(view.t)
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    A_act = torch.where(valid[..., None], take_rows(A, rows_idx), zero)
+    cx_act = torch.where(valid, take(cx, rows_idx), zero)
+    row_nrm = torch.sqrt(torch.sum(A_act * A_act, dim=-1))
     if scaling:
         safe = torch.where(row_nrm.abs() < eps, torch.ones_like(row_nrm),
                            row_nrm)
-        A_act = A_act / safe[:, None]
+        A_act = A_act / safe[..., None]
         cx_act = cx_act / safe
         diag_scale = 1.0 / safe
     else:
@@ -145,29 +147,30 @@ def gather_active(A: torch.Tensor, cx: torch.Tensor, view: WorkingView,
 def factor_active(act: ActiveConstraint, gf: torch.Tensor, t,
                   dims: Dims) -> FactorA:
     """F_A = pivoted QR of A_act^T (t live columns); qt_gf = Q^T grad_f."""
-    f = cpqr_blocked(act.A_act.t(), nsteps=t, device=gf.device)
+    f = cpqr_blocked(act.A_act.transpose(-1, -2), nsteps=t, device=gf.device)
     return FactorA(f=f, qt_gf=qt_apply(f, gf))
 
 
-def zeros_factor_l11(dims: Dims, dtype, device) -> FactorL11:
+def zeros_factor_l11(dims: Dims, dtype, device, lead=()) -> FactorL11:
     """Placeholder F_L11 for paths that never read it (full-rank GN):
-    any consumer output fed by it is masked away before use."""
+    any consumer output fed by it is masked away before use.  ``lead``:
+    leading lane axes."""
     ka, l = dims.ka, dims.l
-    return FactorL11(R=torch.zeros((ka, ka), dtype=dtype, device=device),
-                     perm=torch.arange(ka, device=device),
-                     qt_b=torch.zeros((l,), dtype=dtype, device=device),
-                     diag=torch.zeros((ka,), dtype=dtype, device=device))
+    z = lambda *shape: torch.zeros((*lead, *shape), dtype=dtype, device=device)
+    return FactorL11(R=z(ka, ka),
+                     perm=torch.arange(ka, device=device).expand(*lead, ka),
+                     qt_b=z(l), diag=z(ka))
 
 
 def factor_l11(F_A: FactorA, act: ActiveConstraint, t) -> FactorL11:
     """F_L11 = pivoted QR of L11 = R_A^T ((l, ka) buffer; rows beyond t
     are automatically zero because the masked slots of A pivot last);
     qt_b = Q2^T (-cx_act[perm_A])."""
-    ka, l = F_A.R.shape
+    ka, l = F_A.R.shape[-2:]
     i = torch.arange(l, device=F_A.R.device)
-    L11 = F_A.R.t()                      # (l, ka)
-    cxp = act.cx_act[F_A.perm]
-    bvec = -torch.where(i < t, cxp, torch.zeros_like(cxp))
+    L11 = F_A.R.transpose(-1, -2)        # (l, ka)
+    cxp = take(act.cx_act, F_A.perm)
+    bvec = -torch.where(i < ex(t), cxp, torch.zeros_like(cxp))
     f = cpqr_blocked(L11, nsteps=torch.clamp(torch.as_tensor(t), max=ka),
                      device=L11.device)
     return FactorL11(R=f.R, perm=f.perm, qt_b=qt_apply(f, bvec), diag=f.diag)
@@ -176,7 +179,7 @@ def factor_l11(F_A: FactorA, act: ActiveConstraint, t) -> FactorL11:
 def _slots_to_constraints(v: torch.Tensor, F_A: FactorA, l: int
                           ) -> torch.Tensor:
     """Pivot-slot vector (ka,) -> active-slot order (l,)."""
-    return _embed(v, l)[invperm(F_A.perm)]
+    return take(_embed(v, l), invperm(F_A.perm))
 
 
 def first_mult_estimate(F_A: FactorA, act: ActiveConstraint, t, dims: Dims,
@@ -187,13 +190,14 @@ def first_mult_estimate(F_A: FactorA, act: ActiveConstraint, t, dims: Dims,
     l, ka = dims.l, dims.ka
     prankA = pseudo_rank(F_A.diag, t, eps_rank)
     b = F_A.qt_gf  # (n,)
-    Rkk = F_A.R[:ka, :ka]
-    lam_ls = _slots_to_constraints(solve_upper(Rkk, b[:ka], prankA), F_A, l)
+    Rkk = F_A.R[..., :ka, :ka]
+    lam_ls = _slots_to_constraints(solve_upper(Rkk, b[..., :ka], prankA),
+                                   F_A, l)
     idx_n = torch.arange(dims.n, device=b.device)
-    grad_res = torch.sqrt(torch.sum(torch.where(idx_n >= prankA, b * b,
-                                                torch.zeros_like(b))))
-    b2 = -act.cx_act[F_A.perm]
-    y = solve_lower(Rkk.t(), b2[:ka], prankA)
+    grad_res = torch.sqrt(torch.sum(torch.where(idx_n >= ex(prankA), b * b,
+                                                torch.zeros_like(b)), dim=-1))
+    b2 = -take(act.cx_act, F_A.perm)
+    y = solve_lower(Rkk.transpose(-1, -2), b2[..., :ka], prankA)
     u = solve_upper(Rkk, y, prankA)
     lam = lam_ls + _slots_to_constraints(u, F_A, l)
     if scaling:
@@ -213,11 +217,11 @@ def second_mult_estimate(F_A: FactorA, JQ1: torch.Tensor, rx: torch.Tensor,
     l, ka = dims.l, dims.ka
     eps_rank = torch.finfo(rx.dtype).eps ** 0.5
     prankA = pseudo_rank(F_A.diag, t, eps_rank)
-    cols = torch.arange(dims.n, device=rx.device) < t
+    cols = torch.arange(dims.n, device=rx.device) < ex(t)
     # J1^T v with J1 = first t cols of JQ1: mask the (n,) RESULT.
-    b_raw = JQ1.t() @ (rx + J @ p_gn)
+    b_raw = mtv(JQ1, rx + mv(J, p_gn))
     b_full = torch.where(cols, b_raw, torch.zeros_like(b_raw))  # (n,)
-    v = solve_upper(F_A.R[:ka, :ka], b_full[:ka], prankA)
+    v = solve_upper(F_A.R[..., :ka, :ka], b_full[..., :ka], prankA)
     lam = _slots_to_constraints(v, F_A, l)
     if scaling:
         lam = lam * act.diag_scale
@@ -228,12 +232,11 @@ def _p1_stabilized(F_L11: FactorL11, dimA, rankA) -> torch.Tensor:
     """p1 for the rank-deficient path: solve R11[:dimA,:dimA] dp1 = qt_b,
     unpermute over the ka pivot slots, truncate to the first rankA
     entries.  Returns a (ka,) vector."""
-    ka = F_L11.R.shape[0]
-    dp1 = solve_upper(F_L11.R[:ka, :ka], F_L11.qt_b[:ka], dimA)
-    p1_full = torch.zeros_like(dp1)
-    p1_full[F_L11.perm] = dp1
-    return torch.where(torch.arange(ka, device=dp1.device) < rankA, p1_full,
-                       torch.zeros_like(p1_full))
+    ka = F_L11.R.shape[-2]
+    dp1 = solve_upper(F_L11.R[..., :ka, :ka], F_L11.qt_b[..., :ka], dimA)
+    p1_full = put(torch.zeros_like(dp1), F_L11.perm, dp1)
+    return torch.where(torch.arange(ka, device=dp1.device) < ex(rankA),
+                       p1_full, torch.zeros_like(p1_full))
 
 
 def sub_search_direction(act: ActiveConstraint, rx: torch.Tensor,
@@ -251,22 +254,22 @@ def sub_search_direction(act: ActiveConstraint, rx: torch.Tensor,
     which keeps this free of control flow."""
     n, ka = dims.n, dims.ka
     dev = rx.device
-    bvec = -act.cx_act[F_A.perm]
+    bvec = -take(act.cx_act, F_A.perm)
     # Full-rank branch only valid when t <= ka (code 1 implies it);
     # the solve is clamped so the unselected branch stays finite.
-    p1_full = solve_lower(F_A.R.t()[:ka, :ka], bvec[:ka],
+    p1_full = solve_lower(F_A.R.transpose(-1, -2)[..., :ka, :ka],
+                          bvec[..., :ka],
                           torch.clamp(torch.as_tensor(t, device=dev), max=ka))
     p1_stab = _p1_stabilized(F_L11, dimA, rankA)
-    use_full = torch.as_tensor(code, device=dev) == 1
+    use_full = ex(torch.as_tensor(code, device=dev) == 1)
     p1 = torch.where(use_full, p1_full, p1_stab)   # (ka,)
     b = torch.where(use_full, bvec, F_L11.qt_b)    # (l,)
     # Embed p1 into y-coordinates (first rankA slots; rankA == t if code 1).
     p1n = _embed(p1, n)
     d = j2_transform_d(F_J2, JQ1, p1n, rx)     # (m,)
     kk = min(dims.m, n)
-    dp2 = solve_upper(F_J2.R[:, :kk], d[:kk], dimJ2)  # (kk,)
-    p2n = torch.zeros_like(p1n)
-    p2n[F_J2.perm[:kk]] = dp2
+    dp2 = solve_upper(F_J2.R[..., :, :kk], d[..., :kk], dimJ2)  # (kk,)
+    p2n = put(torch.zeros_like(p1n), F_J2.perm[..., :kk], dp2)
     y = p1n + p2n
     p = q_apply(F_A.f, y)
     return p, b, d, y
@@ -279,14 +282,16 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
     """GNSRCH: J Q1, the pivoted QR of its live columns, SUBDIR."""
     n = dims.n
     rd = rdims_or(rdims, dims)
-    live_cols = torch.arange(n, device=J.device) >= rankA
+    live_cols = torch.arange(n, device=J.device) >= ex(rankA)
     JQ1 = right_q_apply(F_A.f, J)
     # Only n - rankA columns are live; skip the no-op steps.
-    J2buf = torch.where(live_cols[None, :], JQ1, torch.zeros_like(JQ1[:1]))
+    J2buf = torch.where(live_cols[..., None, :], JQ1,
+                        torch.zeros((), dtype=JQ1.dtype, device=JQ1.device))
     F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
                                    device=J.device))
     # Semantic diag length (pseudo_rank's sqrt(len) tolerance factor).
-    len_diag = torch.clamp(rd.n - rankA, max=rd.m)
+    len_diag = torch.minimum(rd.n - rankA, torch.as_tensor(rd.m,
+                                                           device=J.device))
     rankJ2 = pseudo_rank(F_J2.diag, len_diag, eps_rank)
     code = torch.where(rankA == t, 1, -1)
     p, b, d, y = sub_search_direction(act, rx, F_A, F_L11, F_J2, JQ1, t,
@@ -298,7 +303,7 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
 def hessian_contractions(res_fn: Callable, cons_fn: Callable,
                          x: torch.Tensor, rx: torch.Tensor,
                          lam_full: torch.Tensor):
-    """Exact AD replacements for HESSF/HESSH:
+    """Exact AD replacements for HESSF/HESSH (one lane):
 
     r_mat = sum_k r_k(x0) * hess(r_k)(x)   = hess_x <r(x), rx_const>
     c_mat = sum_i lam_i   * hess(c_i)(x)   = hess_x <c(x), lam_full>
@@ -315,10 +320,14 @@ def newton_search_direction(res_fn: Callable, cons_fn: Callable,
                             lam: torch.Tensor, view: WorkingView,
                             act: ActiveConstraint, F_A: FactorA,
                             F_L11: FactorL11, JQ1: torch.Tensor, rankA, t,
-                            dims: Dims, rdims=None):
+                            dims: Dims, rdims=None, hess=None):
     """NEWTON: KKT step on the null-space system with exact second-order
     terms.  Returns (p, error) where error mirrors the Cholesky-failure
     flag (-> exit code -3).
+
+    ``hess(x, rx, lam_full) -> (r_mat, c_mat)`` replaces
+    :func:`hessian_contractions` of ``res_fn``/``cons_fn`` (a batch
+    passes its lane-mapped form).
 
     Deviation kept from the reference port: when t > rankA the Julia
     code permutes E by F_L11.p in a way that would index out of bounds
@@ -326,49 +335,58 @@ def newton_search_direction(res_fn: Callable, cons_fn: Callable,
     coordinates and identity elsewhere."""
     n, ka, l = dims.n, dims.ka, dims.l
     dev, dtype = x.device, x.dtype
-    n_sem = rdims_or(rdims, dims).n
-    bvec = -act.cx_act[F_A.perm]
-    p1_full = solve_lower(F_A.R.t()[:ka, :ka], bvec[:ka],
-                          torch.clamp(t, max=ka))
+    n_sem = ex(rdims_or(rdims, dims).n)
+    bvec = -take(act.cx_act, F_A.perm)
+    p1_full = solve_lower(F_A.R.transpose(-1, -2)[..., :ka, :ka],
+                          bvec[..., :ka], torch.clamp(t, max=ka))
     p1_stab = _p1_stabilized(F_L11, rankA, rankA)
-    p1 = torch.where(t == rankA, p1_full, p1_stab)
+    p1 = torch.where(ex(t == rankA), p1_full, p1_stab)
     p1n = _embed(p1, n)
 
     # Scatter slot multipliers to the full constraint vector.
-    lam_full = torch.zeros(l, dtype=dtype, device=dev)
-    lam_full[view.active_list] = torch.where(act.valid, lam,
-                                             torch.zeros_like(lam))
-    r_mat, c_mat = hessian_contractions(res_fn, cons_fn, x, rx, lam_full)
+    lam_full = put(torch.zeros(l, dtype=dtype, device=dev), view.active_list,
+                   torch.where(act.valid, lam, torch.zeros_like(lam)))
+    if hess is None:
+        r_mat, c_mat = hessian_contractions(res_fn, cons_fn, x, rx, lam_full)
+    else:
+        r_mat, c_mat = hess(x, rx, lam_full)
     Gamma = r_mat - c_mat
     E = right_q_apply(F_A.f, qt_apply(F_A.f, Gamma))
     # Permute leading-t coordinates by F_L11.p when t > rankA.
     idn = torch.arange(n, device=dev)
-    permf = idn.clone()
-    permf[:min(ka, n)] = F_L11.perm[:min(ka, n)]
-    permf = torch.where(idn < t, permf, idn)
-    Ep = E[permf][:, permf]
-    E_used = torch.where(t > rankA, Ep, E)
+    kk = min(ka, n)
+    lead = F_L11.perm.shape[:-1]
+    permf = torch.cat([F_L11.perm[..., :kk], idn[kk:].expand(*lead, n - kk)],
+                      dim=-1)
+    permf = torch.where(idn < ex(t), permf, idn)
+    Er = take_rows(E, permf)
+    Ep = torch.gather(Er, -1, permf[..., None, :].expand_as(Er))
+    E_used = torch.where(ex(t > rankA, 2), Ep, E)
 
     # Padded coordinates (>= the true n) are outside the Newton block.
-    in2 = (idn >= rankA) & (idn < n_sem)
-    J2 = torch.where(in2[None, :], JQ1, torch.zeros_like(JQ1[:1]))
-    W = E_used + J2.t() @ J2                  # W22 on the (>=rankA) block
-    W21p1 = E_used @ p1n + J2.t() @ (JQ1 @ p1n)
-    dfull = torch.where(in2, -(W21p1) - J2.t() @ rx, torch.zeros_like(p1n))
+    in2 = (idn >= ex(rankA)) & (idn < n_sem)
+    J2 = torch.where(in2[..., None, :], JQ1,
+                     torch.zeros((), dtype=dtype, device=dev))
+    J2t = J2.transpose(-1, -2)
+    W = E_used + J2t @ J2                     # W22 on the (>=rankA) block
+    W21p1 = mv(E_used, p1n) + mv(J2t, mv(JQ1, p1n))
+    dfull = torch.where(in2, -(W21p1) - mv(J2t, rx), torch.zeros_like(p1n))
 
-    sW = 0.5 * (W + W.t())
-    blk = in2[:, None] & in2[None, :]
+    sW = 0.5 * (W + W.transpose(-1, -2))
+    blk = in2[..., :, None] & in2[..., None, :]
     eye = torch.eye(n, dtype=dtype, device=dev)
     Wm = torch.where(blk, sW, eye)
     L, info = torch.linalg.cholesky_ex(Wm)
-    bad = (info != 0) | torch.any(torch.isnan(L))
-    Ls = torch.where(bad, eye, L)
-    yv = torch.linalg.solve_triangular(Ls, dfull[:, None], upper=False)
-    p2n = torch.linalg.solve_triangular(Ls.t(), yv, upper=True)[:, 0]
+    bad = (info != 0) | torch.any(torch.isnan(L), dim=(-1, -2))
+    Ls = torch.where(ex(bad, 2), eye, L)
+    yv = torch.linalg.solve_triangular(Ls, dfull[..., None], upper=False)
+    p2n = torch.linalg.solve_triangular(Ls.transpose(-1, -2), yv,
+                                        upper=True)[..., 0]
     p2n = torch.where(in2, p2n, torch.zeros_like(p2n))
     p = q_apply(F_A.f, p1n + p2n)
-    p = torch.where(bad, torch.zeros_like(p), p)
+    p = torch.where(ex(bad), torch.zeros_like(p), p)
     # rankA == n: constraints determine the step fully.
-    p = torch.where(rankA >= n_sem, q_apply(F_A.f, p1n), p)
-    error = bad & (rankA < n_sem)
+    full = rankA >= rdims_or(rdims, dims).n
+    p = torch.where(ex(full), q_apply(F_A.f, p1n), p)
+    error = bad & ~full
     return p, error

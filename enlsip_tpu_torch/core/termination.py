@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from .._lanes import mtv, norm, take
 from ..ops.qr import prefix_dot
 from .types import Dims, Tols, rdims_or
 
@@ -26,12 +27,13 @@ def check_termination(p, code, restart, deleted, d_gn, dimJ2, grad_res,
     """TERCRI.  All inputs are post-step values except the factorization
     products (grad_res, d_gn, act_*) which come from the direction
     computation at the pre-step point, exactly as in the reference.
-    Control-flow free; returns a 0-d int64 exit code (0 = continue)."""
+    Control-flow free; returns a per-lane int64 exit code (0 = continue;
+    0-d for one solve, ``(B,)`` for a batch)."""
     m, q = dims.m, rdims_or(rdims, dims).q
     dtype, dev = x.dtype, x.device
     rel = torch.finfo(dtype).eps
     is_f32 = rel > torch.finfo(torch.float64).eps
-    alfnoi = rel / (torch.linalg.norm(p) + rel)
+    alfnoi = rel / (norm(p) + rel)
     T, F = (torch.ones((), dtype=torch.bool, device=dev),
             torch.zeros((), dtype=torch.bool, device=dev))
     as_t = lambda v: torch.as_tensor(v, device=dev)
@@ -42,37 +44,37 @@ def check_termination(p, code, restart, deleted, d_gn, dimJ2, grad_res,
 
     zero_s = torch.zeros_like(act_cx)
     act_cx_nrm = torch.sqrt(torch.sum(torch.where(act_valid, act_cx * act_cx,
-                                                  zero_s)))
-    gf_nrm = torch.linalg.norm(gf)
+                                                  zero_s), dim=-1))
+    gf_nrm = norm(gf)
     necessary = (~deleted) & (act_cx_nrm < tols.eps_c) & \
                 (grad_res < torch.sqrt(tols.eps_rel) * (1 + gf_nrm))
     inact = ~mask
-    n_inact = torch.sum(inact)
-    inact_ok = torch.all(torch.where(inact, cx > 0.0, T))
+    n_inact = torch.sum(inact, dim=-1)
+    inact_ok = torch.all(torch.where(inact, cx > 0.0, T), dim=-1)
     necessary = necessary & torch.where(n_inact > 0, inact_ok, T)
     factor = torch.where(t == 1, 1.0 + rx_sum, lam_abs_max)
     necessary = necessary & torch.where(
         t > q, sigma_min >= tols.eps_rel * factor, T)
 
     d1sq = prefix_dot(d_gn, torch.clamp(as_t(dimJ2), 0, m))
-    x_diff = torch.linalg.norm(prev_x - x)
-    xnrm = torch.linalg.norm(x)
+    x_diff = norm(prev_x - x)
+    xnrm = norm(x)
     conv = (torch.where(d1sq <= rx_sum * tols.eps_rel ** 2, 10000, 0)
             + torch.where(rx_sum <= tols.eps_abs ** 2, 2000, 0)
             + torch.where(x_diff < tols.eps_x * xnrm, 300, 0)
             + torch.where(alfnoi > 0.25, 40, 0))
     # Infeasibility negation — dead under the necessary conditions
     # above, kept for exactness.
-    any_viol = torch.any(torch.where(inact, cx <= 0.0, F))
+    any_viol = torch.any(torch.where(inact, cx <= 0.0, F), dim=-1)
     conv = torch.where((conv > 0) & (n_inact > 0) & any_viol, -conv, conv)
     exit_code = torch.where(preliminary & necessary, conv,
                             torch.zeros_like(conv))
 
     # Abnormal termination, priority order preserved.
-    Atcx = act_A.t() @ torch.where(act_valid, act_cx, zero_s)
-    Atcx_nrm = torch.linalg.norm(Atcx)
-    w_act = w[active_global]
-    pen_sum = torch.sum(torch.where(act_valid, w_act * w_act, zero_s))
+    Atcx = mtv(act_A, torch.where(act_valid, act_cx, zero_s))
+    Atcx_nrm = norm(Atcx)
+    w_act = take(w, active_global)
+    pen_sum = torch.sum(torch.where(act_valid, w_act * w_act, zero_s), dim=-1)
     pen_sum = torch.where(t == 0, torch.zeros_like(pen_sum), pen_sum)
     stuck = (x_diff <= 10.0 * tols.eps_x) & (Atcx_nrm <= 10.0 * tols.eps_c) & \
             (pen_sum >= 1.0)

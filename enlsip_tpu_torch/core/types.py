@@ -6,6 +6,12 @@ here the solver state is one :class:`Carry` of tensors, the working set
 is a boolean mask over the ``l`` constraints, and every data-dependent
 dimension (t, rankA, rankJ2, dimA, dimJ2) is a 0-d int64 tensor that the
 host loop reads back only where it has to branch.
+
+A batch of solves uses the same structures with a leading lane axis on
+every tensor: vectors ``(B, n)``, per-lane scalars ``(B,)``.  The fields
+that one solve keeps as host ints (``Carry.exit_code``, ``nb_iter``,
+``nb_newton_steps``, ``n_display`` and the :class:`Counters`) are then
+``(B,)`` int64 tensors, one value per lane.
 """
 
 from __future__ import annotations
@@ -50,7 +56,8 @@ class RDims(NamedTuple):
     logic compares against (GNDCHK's ``m == n - t``, the EVADD capacity
     bound ``min(l, n)``, TERCRI's ``t > q``), as opposed to the buffer
     shapes fixed by :class:`Dims`.  For ordinary solves the two
-    coincide."""
+    coincide.  A batch may give each lane its own (fields are then
+    ``(B,)`` int64 tensors)."""
 
     n: int
     m: int
@@ -139,7 +146,8 @@ class Tols(NamedTuple):
 
 
 class Counters(NamedTuple):
-    """Evaluation counters (host ints), observable via ExecutionInfo."""
+    """Evaluation counters, observable via ExecutionInfo: host ints for
+    one solve, ``(B,)`` int64 tensors for a batch."""
 
     nb_res: int
     nb_jacres: int
@@ -147,11 +155,15 @@ class Counters(NamedTuple):
     nb_jaccons: int
 
     @staticmethod
-    def zeros() -> "Counters":
-        return Counters(0, 0, 0, 0)
+    def zeros(lead=(), device=None) -> "Counters":
+        """All-zero counters; with leading lane axes ``lead``, tensors."""
+        if not lead:
+            return Counters(0, 0, 0, 0)
+        return Counters(*(torch.zeros(lead, dtype=torch.int64, device=device)
+                          for _ in range(4)))
 
-    def bump(self, res: int = 0, jacres: int = 0, cons: int = 0,
-             jaccons: int = 0) -> "Counters":
+    def bump(self, res=0, jacres=0, cons=0, jaccons=0) -> "Counters":
+        """Counters advanced by host ints or per-lane int tensors."""
         return Counters(self.nb_res + res, self.nb_jacres + jacres,
                         self.nb_cons + cons, self.nb_jaccons + jaccons)
 
@@ -192,12 +204,12 @@ class Carry(NamedTuple):
     prev: PrevIter
     restart: torch.Tensor    # bool, current iter restart flag (carried)
     index_del: torch.Tensor  # global constraint index, -1 = none (carried)
-    nb_newton_steps: int
-    nb_iter: int
-    exit_code: int
+    nb_newton_steps: int     # host int; (B,) int64 tensor in a batch
+    nb_iter: int             # likewise
+    exit_code: int           # likewise
     counters: Counters
     display: torch.Tensor    # (max_iter+1, 5): objective, act_cx_sum, |p|, alpha, progress
-    n_display: int
+    n_display: int           # host int; (B,) int64 tensor in a batch
 
 
 class WorkingView(NamedTuple):
@@ -206,7 +218,7 @@ class WorkingView(NamedTuple):
     active_list: (l,) int64 — first t entries are the sorted active
       constraint indices, the remaining l-t entries are the sorted
       inactive ones.
-    t: 0-d int64 active count.
+    t: per-lane int64 active count (0-d for one solve).
     """
 
     active_list: torch.Tensor
@@ -214,13 +226,9 @@ class WorkingView(NamedTuple):
 
 
 def working_view(mask: torch.Tensor) -> WorkingView:
-    l = mask.shape[0]
+    l = mask.shape[-1]
     idx = torch.arange(l, device=mask.device)
     # The key has no ties, so the order does not depend on sort stability.
     key = torch.where(mask, idx, idx + l)
-    return WorkingView(active_list=torch.argsort(key), t=torch.sum(mask))
-
-
-def scalar(v, dtype, device) -> torch.Tensor:
-    """0-d tensor of ``dtype`` on ``device``."""
-    return torch.as_tensor(v, dtype=dtype, device=device)
+    return WorkingView(active_list=torch.argsort(key, dim=-1),
+                       t=torch.sum(mask, dim=-1))

@@ -6,7 +6,9 @@ t <= min(l, n) with swap-out of the least-violated active inequality)
 and minmax_lagrangian_mult.
 
 The working set is a boolean mask of length l; sorted active/inactive
-lists are derived on demand (types.working_view).
+lists are derived on demand (types.working_view).  Every function takes
+one solve's vectors or a batch's (leading lane axes; per-lane scalars
+0-d or ``(B,)``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ import math
 
 import torch
 
-from .._device import to_host
+from .._device import to_host_list
+from .._lanes import ex, norm, take1
 from .types import Dims, rdims_or
 
 
@@ -31,13 +34,14 @@ def init_working_set(cx: torch.Tensor, A: torch.Tensor, x: torch.Tensor,
     window in UPBND (linesearch.upper_bound_steplength) it leaves no
     gap: every inactive constraint either caps the step (cx > noise) or
     starts active (cx <= noise).  At float64 the window is ~1e-14*scale."""
-    l, q = dims.l, rdims_or(rdims, dims).q
+    l, q = dims.l, ex(rdims_or(rdims, dims).q)
     idx = torch.arange(l, device=cx.device)
-    row_norm = torch.sqrt(torch.sum(A * A, dim=1))
-    noise = torch.finfo(cx.dtype).eps * (1.0 + row_norm * torch.linalg.norm(x))
+    row_norm = torch.sqrt(torch.sum(A * A, dim=-1))
+    noise = torch.finfo(cx.dtype).eps * (1.0 + row_norm * ex(norm(x)))
     mask = (idx < q) | ((idx >= q) & (cx <= noise))
     w = torch.clamp(cx.abs() + 0.01, max=0.1)
-    K = torch.full((4, l), 0.1, dtype=cx.dtype, device=cx.device)
+    K = torch.full((*cx.shape[:-1], 4, l), 0.1, dtype=cx.dtype,
+                   device=cx.device)
     return mask, w, K
 
 
@@ -45,51 +49,52 @@ def _row_scale(scaling: bool, diag_scale: torch.Tensor) -> torch.Tensor:
     return (1.0 / diag_scale) if scaling else diag_scale
 
 
-def check_constraint_deletion(q: int, lam: torch.Tensor, valid: torch.Tensor,
+def check_constraint_deletion(q, lam: torch.Tensor, valid: torch.Tensor,
                               t, scaling: bool, diag_scale: torch.Tensor,
                               grad_res) -> torch.Tensor:
-    """SIGNCH: slot index (0-d int64) of the inequality with the most
-    negative row-scaled multiplier, or -1 if none shall be deleted.
+    """SIGNCH: slot index (per-lane int64) of the inequality with the
+    most negative row-scaled multiplier, or -1 if none shall be deleted.
 
     Ties resolve to the *last* qualifying slot (the reference updates on
     ``<=``).  Deletion is suppressed while far from stationarity on the
     current working set: ``grad_res > -e * 10``."""
-    tmax = lam.shape[0]
+    tmax = lam.shape[-1]
     sqrt_eps = math.sqrt(torch.finfo(lam.dtype).eps)
     inf = torch.full_like(lam, math.inf)
     one = torch.ones((), dtype=lam.dtype, device=lam.device)
-    lam_max = torch.where(t == 0, one,
-                          torch.max(torch.where(valid, lam.abs(), -inf)))
+    lam_max = torch.where(
+        t == 0, one, torch.max(torch.where(valid, lam.abs(), -inf),
+                               dim=-1).values)
     sq_rel = sqrt_eps * lam_max
     vals = _row_scale(scaling, diag_scale) * lam
     slot = torch.arange(tmax, device=lam.device)
-    cand = (slot >= q) & (slot < t)
+    cand = (slot >= ex(q)) & (slot < ex(t))
     masked = torch.where(cand, vals, inf)
-    vmin = torch.min(masked)
+    vmin = torch.min(masked, dim=-1).values
     found = vmin <= sq_rel
     # last index achieving the min (reference's <= update keeps the last)
-    s = torch.max(torch.where(cand & (masked == vmin), slot, -1))
+    s = torch.max(torch.where(cand & (masked == ex(vmin)), slot, -1),
+                  dim=-1).values
     e = torch.where(found, vmin, sq_rel)
     s = torch.where(found & (t > q), s, -1)
     return torch.where(grad_res > -e * 10.0, -1, s)
 
 
-def minmax_lagrangian_mult(lam: torch.Tensor, valid: torch.Tensor, t, q: int,
+def minmax_lagrangian_mult(lam: torch.Tensor, valid: torch.Tensor, t, q,
                            scaling: bool, diag_scale: torch.Tensor):
     """sigma_min = most-negative inequality multiplier whose row-scaled
     value is <= -sqrt(eps) (Inf if none); lam_abs_max = max |lam| over
     the whole working set (0 if t <= q)."""
-    tmax = lam.shape[0]
+    tmax = lam.shape[-1]
     sq_rel = math.sqrt(torch.finfo(lam.dtype).eps)
     inf = torch.full_like(lam, math.inf)
     slot = torch.arange(tmax, device=lam.device)
-    lam_abs_max = torch.where(t > q,
-                              torch.max(torch.where(valid, lam.abs(), -inf)),
-                              torch.zeros((), dtype=lam.dtype,
-                                          device=lam.device))
+    lam_abs_max = torch.where(
+        t > q, torch.max(torch.where(valid, lam.abs(), -inf), dim=-1).values,
+        torch.zeros((), dtype=lam.dtype, device=lam.device))
     rows = _row_scale(scaling, diag_scale)
-    cand = (slot >= q) & (slot < t) & (lam * rows <= -sq_rel)
-    sigmin = torch.min(torch.where(cand, lam, inf))
+    cand = (slot >= ex(q)) & (slot < ex(t)) & (lam * rows <= -sq_rel)
+    sigmin = torch.min(torch.where(cand, lam, inf), dim=-1).values
     return sigmin, lam_abs_max
 
 
@@ -101,45 +106,51 @@ def evaluate_violated_constraints(cx: torch.Tensor, mask: torch.Tensor,
     least-violated active inequality when it is less violated than the
     candidate.
 
-    Returns (new_mask, added_flag).  ``index_alpha_upp`` is a global
-    constraint index (-1 = none).
+    Returns (new_mask, added): ``added`` is a per-lane bool tensor.
+    ``index_alpha_upp`` is a global constraint index (-1 = none).
 
     The scan order is the reference's: the inactive constraints of the
     incoming mask in ascending index.  Whether a candidate WANTS in
     depends only on cx and ``index_alpha_upp``, never on the evolving
-    mask, so the host walks just the wanting candidates (usually none,
-    read back as one count) instead of every inactive slot; the result
-    is the same as the full scan.
+    mask.  A lane whose wanting candidates all fit under the capacity
+    bound takes them at once (the scan would add each one plainly); the
+    scan itself runs only over the constraint indices that some
+    over-capacity lane wants, which are read back as one list (usually
+    empty) — the single host read of this function.
 
     Parity note (as in the reference port): constraints swapped *out*
     within the pass are not rescanned."""
     l = dims.l
     rd = rdims_or(rdims, dims)
     q = rd.q
+    dev = cx.device
     eps_s = math.sqrt(torch.finfo(cx.dtype).eps)
     delta = 0.1
-    bnd = min(rd.l, rd.n)
-    idxg = torch.arange(l, device=cx.device)
-    want = (~mask) & ((cx < eps_s) | ((idxg == index_alpha_upp) & (cx < delta)))
-    wanting = torch.nonzero(want)[:, 0]
-    added = False
-    if wanting.shape[0] == 0:      # the shape read is the host read-back
-        return mask, added
-    m = mask.clone()
+    bnd = torch.minimum(torch.as_tensor(rd.l, device=dev),
+                        torch.as_tensor(rd.n, device=dev))
+    idxg = torch.arange(l, device=dev)
+    want = (~mask) & ((cx < eps_s) |
+                      ((idxg == ex(index_alpha_upp)) & (cx < delta)))
+    n_want = torch.sum(want, dim=-1)
+    fits = torch.sum(mask, dim=-1) + n_want <= bnd
+    scan = want & ex(~fits)
+    ks = to_host_list(torch.nonzero(scan.reshape(-1, l).any(dim=0))[:, 0])
+    m = mask | (want & ex(fits))
+    added = fits & (n_want > 0)
     neg_inf = torch.full_like(cx, -math.inf)
-    for k in wanting.tolist():
-        t = int(to_host(torch.sum(m)))
-        if t < bnd:
-            m[k] = True            # in-place index assignment
-            added = True
-            continue
+    for k in ks:
+        wk = scan[..., k]
+        at_cap = torch.sum(m, dim=-1) >= bnd
         # Least-violated (max cx) active inequality; first argmax like
         # the reference's strict-> scan over ascending slots.
-        act_ineq = m & (idxg >= q)
+        act_ineq = m & (idxg >= ex(q))
         vals = torch.where(act_ineq, cx, neg_inf)
-        worst = torch.argmax(vals)
-        if bool(to_host(torch.any(act_ineq) & (vals[worst] > cx[k]))):
-            m[worst] = False
-            m[k] = True
-            added = True
+        worst = torch.argmax(vals, dim=-1)
+        can_swap = torch.any(act_ineq, dim=-1) & \
+            (take1(vals, worst) > cx[..., k])
+        do_plain = wk & ~at_cap
+        do_swap = wk & at_cap & can_swap
+        m = m & ~(ex(do_swap) & (idxg == ex(worst)))
+        m = m | (ex(do_plain | do_swap) & (idxg == k))
+        added = added | do_plain | do_swap
     return m, added

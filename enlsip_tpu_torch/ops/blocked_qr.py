@@ -12,6 +12,11 @@ provides the same factorization in three forms behind one dispatch
 * the fused Hopper kernel (``ops/cpqr_hopper.py``), for large
   factorizations on a CUDA device.
 
+A batch of same-shaped buffers (3-D input) gives a :class:`CPQRF` with a
+leading lane axis on every field: tiny matrices through the batched
+kernel (``ops/cpqr_batched_hopper.py``), larger ones through the batched
+rank-1 loop.  The Q applications below take either form.
+
 ``Q`` is never materialized.  Reflectors ``V, tau`` come back with
 panel-wise compact-WY ``T`` factors (``Q = prod_p (I - V_p T_p V_p^T)``),
 so ``Q^T x``, ``Q x`` and ``J @ Q`` are short chains of matrix products.
@@ -83,18 +88,19 @@ def _householder_col(col: torch.Tensor, k: int):
 
 def _panel_T(V: torch.Tensor, taus: torch.Tensor, nb: int) -> torch.Tensor:
     """Per-panel compact-WY T factors: T_p = U_p^{-1},
-    U_p = diag(1/tau_p) + strict_upper(V_p^T V_p)."""
-    rows, kp = V.shape
+    U_p = diag(1/tau_p) + strict_upper(V_p^T V_p).  ``V`` (..., rows, kp)
+    and ``taus`` (..., kp) may carry leading lane axes."""
+    *lead, rows, kp = V.shape
     n_panels = kp // nb
-    Vp = V.reshape(rows, n_panels, nb).permute(1, 0, 2)     # (np, rows, nb)
-    tp = taus.reshape(n_panels, nb)
-    VtV = Vp.transpose(1, 2) @ Vp
+    Vp = V.reshape(*lead, rows, n_panels, nb).movedim(-2, -3)  # (np, rows, nb)
+    tp = taus.reshape(*lead, n_panels, nb)
+    VtV = Vp.transpose(-1, -2) @ Vp
     live = tp > 0
     safe_tau = torch.where(live, tp, torch.ones_like(tp))
     U = torch.triu(VtV, 1) + torch.diag_embed(1.0 / safe_tau)
     eye = torch.eye(nb, dtype=V.dtype, device=V.device).expand_as(U)
     T = torch.linalg.solve_triangular(U, eye, upper=True)
-    keep = live[:, :, None] & live[:, None, :]
+    keep = live[..., :, None] & live[..., None, :]
     return torch.where(keep, T, torch.zeros_like(T))
 
 
@@ -262,6 +268,13 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
     """Column-pivoted QR of a fixed-shape buffer (zeroed invalid columns
     pivot last).
 
+    A 3-D ``M`` (B, rows, cols) is a batch of same-shaped buffers and
+    gives a :class:`CPQRF` whose every field carries the leading lane
+    axis (one WY panel, nb = kmax): tiny matrices (``ops/
+    cpqr_batched_hopper.in_gate``) go to the batched kernel, which runs
+    all kmax steps; larger ones to the batched rank-1 loop with the
+    per-lane ``nsteps`` (B,) as a mask.
+
     ``nsteps`` (int or 0-d tensor) bounds the number of Householder
     steps to the number of LIVE columns: steps past it would be no-ops
     on zero columns (tau = 0), so skipping them changes nothing — but
@@ -273,6 +286,13 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
     kernel on a CUDA device and to the panel loop on the CPU; smaller
     ones run the rank-1 loop on either."""
     M = torch.as_tensor(M).to(resolve_device(device))
+    if M.ndim == 3:
+        from .cpqr_batched_hopper import (cpqr_batched_packed,
+                                          cpqr_batched_packed_plain, in_gate,
+                                          unpack_batched)
+        if in_gate(M.shape[1], M.shape[2]):
+            return unpack_batched(*cpqr_batched_packed(M))
+        return unpack_batched(*cpqr_batched_packed_plain(M, nsteps))
     kmax = min(M.shape)
     if kmax >= LARGE_KMAX:
         if M.is_cuda:
@@ -286,29 +306,40 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
 # ------------------------------------------------------- Q application
 # Q = P_0 P_1 ... P_{np-1},  P_i = I - V_i T_i V_i^T.
 
+# ``f`` may carry leading lane axes on every field (a batched CPQRF);
+# ``x`` is then a per-lane vector (..., rows) or matrix (..., rows, c).
+
 def _panels(f: CPQRF):
-    kp = f.V.shape[1]
-    nb = f.T.shape[1]
-    return [(f.V[:, i * nb:(i + 1) * nb], f.T[i]) for i in range(kp // nb)]
+    kp = f.V.shape[-1]
+    nb = f.T.shape[-1]
+    return [(f.V[..., i * nb:(i + 1) * nb], f.T[..., i, :, :])
+            for i in range(kp // nb)]
+
+
+def _left_apply(f: CPQRF, x: torch.Tensor, transpose: bool) -> torch.Tensor:
+    vec = x.ndim == f.V.ndim - 1
+    if vec:
+        x = x[..., None]
+    panels = _panels(f)
+    for Vi, Ti in (panels if transpose else reversed(panels)):
+        Tm = Ti.transpose(-1, -2) if transpose else Ti
+        x = x - Vi @ (Tm @ (Vi.transpose(-1, -2) @ x))
+    return x[..., 0] if vec else x
 
 
 def qt_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
     """Q^T @ x (vector or matrix): apply P_i^T in forward order."""
-    for Vi, Ti in _panels(f):
-        x = x - Vi @ (Ti.t() @ (Vi.t() @ x))
-    return x
+    return _left_apply(f, x, True)
 
 
 def q_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
     """Q @ x: apply P_i in reverse order."""
-    for Vi, Ti in reversed(_panels(f)):
-        x = x - Vi @ (Ti @ (Vi.t() @ x))
-    return x
+    return _left_apply(f, x, False)
 
 
 def right_q_apply(f: CPQRF, J: torch.Tensor) -> torch.Tensor:
     """J @ Q: right-multiply by P_i in forward order (plain matrix
     products)."""
     for Vi, Ti in _panels(f):
-        J = J - ((J @ Vi) @ Ti) @ Vi.t()
+        J = J - ((J @ Vi) @ Ti) @ Vi.transpose(-1, -2)
     return J

@@ -1,0 +1,241 @@
+"""Batched column-pivoted QR of tiny matrices on an NVIDIA Hopper card:
+the wrapper of ``csrc/cpqr_batched.cu``.
+
+Replaces the TPU kernel ``enlsip_tpu/ops/pallas_batched_qr.py::_kernel``
+(and its wrappers ``cpqr_batched_packed`` / ``cpqr_blocked_batched``).
+The batched solver factors two tiny masked buffers per lane and lockstep
+trip (A_act^T and J2); as step-by-step tensor code that is some thirty
+launches a Householder step over a (B, rows, cols) buffer.  The kernel
+runs a lane's whole factorization in one thread, so a factorization of
+the batch is ONE launch.  The work is bound by neither bytes nor
+operations at these sizes but by each lane's sequential chain; the
+source note in ``csrc/cpqr_batched.cu`` says what the design does about
+it.
+
+Beside the kernel:
+
+* its plain PyTorch version, :func:`cpqr_batched_packed_plain` (the same
+  arithmetic step by step on a leading batch axis), which
+  :func:`cpqr_batched_packed` takes ONLY for a tensor that lies on the
+  CPU.  For a CUDA tensor it launches the kernel or raises;
+* ``cpqr_batched_packed.launches``, a plain integer counting kernel
+  launches (one per batch factorization sent to the card).
+
+Differences from the TPU kernel, all deliberate: no 512-lane blocks and
+no batch padding (threads past B return), perm is int32 inside the
+kernel and indexed directly, tau and perm are separate outputs, and the
+kernel is instantiated for float64 too, so a float64 batch on the card
+(the float64 re-solve of escalated lanes) also gets it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .._device import resolve_device, to_host
+from .blocked_qr import CPQRF, _panel_T
+
+# Static gates of the kernel path (the TPU kernel's numbers, kept):
+# beyond them a thread's working set no longer sits in cache and the
+# batched rank-1 loop of tensor operations is the right tool.
+MAX_KMAX = 32
+MAX_ELEMS = 32 * 64
+
+_CTYPES = {torch.float32: "cpqr_batched_f32", torch.float64: "cpqr_batched_f64"}
+
+
+def in_gate(rows: int, cols: int) -> bool:
+    """Whether a batch of (rows, cols) matrices goes to the kernel."""
+    return (0 < min(rows, cols) <= MAX_KMAX) and rows * cols <= MAX_ELEMS
+
+
+def _library():
+    from ._build import load_library
+    lib = load_library("cpqr_batched")
+    if not getattr(lib, "_enlsip_bound", False):
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        for fn in _CTYPES.values():
+            getattr(lib, fn).argtypes = [ptr, ptr, ptr, i, i, i, ptr]
+            getattr(lib, fn).restype = i
+        lib.cpqr_batched_error_string.argtypes = [i]
+        lib.cpqr_batched_error_string.restype = ctypes.c_char_p
+        lib._enlsip_bound = True
+    return lib
+
+
+def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
+    """The kernel's plain version: the pivot / reflect / update chain of
+    every lane, step by step on the leading batch axis.
+
+    ``M`` is (B, rows, cols).  Returns ``(packed (B, rows, cols), tau
+    (B, kmax), perm (B, cols) int64)``: R in packed's upper triangle, the
+    Householder beta on the diagonal, reflector tails below it.  Pivot
+    ties resolve to the lowest column index; a zero column gives
+    ``tau = 0`` and an exact no-op.  ``M`` is not modified.
+
+    ``nsteps`` (B,) int, optional: lane b takes only its first
+    ``nsteps[b]`` steps (a mask; the loop stops at the largest count,
+    read back once).  The kernel takes no such argument — on masked
+    buffers the steps past the live columns are no-ops — so this is for
+    batches beyond the kernel's gate, where skipping them saves most of a
+    long loop."""
+    B, rows, cols = M.shape
+    kmax = min(rows, cols)
+    dev, dtype = M.device, M.dtype
+    A = M.clone(memory_format=torch.contiguous_format)
+    perm = torch.arange(cols, device=dev).expand(B, cols).clone()
+    taus = torch.zeros((B, kmax), dtype=dtype, device=dev)
+    ridx = torch.arange(rows, device=dev)
+    cidx = torch.arange(cols, device=dev)
+    last = kmax
+    if nsteps is not None:
+        nsteps = torch.as_tensor(nsteps, device=dev).expand(B)
+        last = 0 if B == 0 else max(0, min(kmax, int(to_host(nsteps.max()))))
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    one = torch.ones((), dtype=dtype, device=dev)
+    for k in range(last):
+        # ---- exact trailing norms, first maximum per lane ---------------
+        sub = A[:, k:, :]
+        nrm2 = torch.sum(sub * sub, dim=1)                       # (B, cols)
+        nrm2 = torch.where(cidx >= k, nrm2, -one)
+        mx = torch.max(nrm2, dim=1, keepdim=True).values
+        piv = torch.min(torch.where(nrm2 == mx, cidx, cols), dim=1).values
+        piv = torch.where(piv >= cols, k, piv)     # no finite candidate
+        if nsteps is not None:
+            on = k < nsteps                                       # (B,)
+            piv = torch.where(on, piv, k)
+        # ---- swap columns k <-> piv and their perm entries --------------
+        pcol = piv[:, None, None].expand(B, rows, 1)
+        colp = torch.gather(A, 2, pcol)                          # (B, rows, 1)
+        colk = A[:, :, k:k + 1].clone()
+        A.scatter_(2, pcol, colk)
+        A[:, :, k] = colp[:, :, 0]
+        pp = torch.gather(perm, 1, piv[:, None])
+        pk = perm[:, k:k + 1].clone()
+        perm.scatter_(1, piv[:, None], pk)
+        perm[:, k] = pp[:, 0]
+        # ---- Householder reflector on column k --------------------------
+        col = A[:, :, k]                                         # (B, rows)
+        tail = torch.where(ridx >= k, col, zero)
+        alpha = col[:, k]
+        signorm = torch.sqrt(torch.sum(tail * tail, dim=1))
+        beta = torch.where(alpha >= 0, -signorm, signorm)
+        denom = alpha - beta
+        safe = denom.abs() > 0
+        denom = torch.where(safe, denom, one)
+        v = torch.where(ridx > k, tail / denom[:, None], zero)
+        v = torch.where(ridx == k, safe[:, None].to(dtype), v)
+        tau = torch.where(safe & (beta != 0),
+                          (beta - alpha) / torch.where(beta != 0, beta, one),
+                          zero)
+        if nsteps is not None:
+            tau = torch.where(on, tau, zero)
+        # ---- H = I - tau v v^T on the columns > k -----------------------
+        vtA = torch.sum(v[:, :, None] * A, dim=1)                # (B, cols)
+        vtA = torch.where(cidx > k, vtA, zero)
+        upd = A - (tau[:, None] * v)[:, :, None] * vtA[:, None, :]
+        # tau = 0 is an exact no-op unless a lane holds inf/NaN
+        A = torch.where((tau != 0)[:, None, None], upd, A)
+        newcol = torch.where(ridx == k,
+                             torch.where(safe, beta, alpha)[:, None],
+                             torch.where(ridx < k, col, v))
+        if nsteps is not None:
+            newcol = torch.where(on[:, None], newcol, col)
+        A[:, :, k] = newcol
+        taus[:, k] = tau
+    return A, taus, perm
+
+
+def cpqr_batched_packed(M: torch.Tensor):
+    """Batched CPQR of ``M`` (B, rows, cols): all ``kmax = min(rows,
+    cols)`` steps on every lane.
+
+    Returns ``(packed (B, rows, cols), tau (B, kmax), perm (B, cols)
+    int64)`` as :func:`cpqr_batched_packed_plain` describes.  ``M``
+    itself is never modified, also when it is a permuted view."""
+    if M.ndim != 3 or M.shape[1] == 0 or M.shape[2] == 0:
+        raise ValueError(f"cpqr_batched_packed takes a (B, rows, cols) batch "
+                         f"of non-empty matrices, got shape {tuple(M.shape)}")
+    if M.dtype not in _CTYPES:
+        raise TypeError(f"cpqr_batched_packed takes float32 or float64, got "
+                        f"{M.dtype}")
+    B, rows, cols = M.shape
+    if not in_gate(rows, cols):
+        raise ValueError(
+            f"cpqr_batched_packed takes min(rows, cols) <= {MAX_KMAX} and "
+            f"rows * cols <= {MAX_ELEMS}, got ({rows}, {cols})")
+    if M.device.type == "cpu":
+        return cpqr_batched_packed_plain(M)
+    if M.device.type != "cuda":
+        raise ValueError(f"cpqr_batched_packed takes a CPU or CUDA tensor, "
+                         f"got {M.device}")
+    if B * rows * cols >= 2 ** 31:
+        raise ValueError("cpqr_batched_packed indexes the batch with int32")
+
+    # A fresh structure-of-arrays buffer (cols, rows, B): the kernel
+    # works in place on it.  Copying INTO a new buffer never aliases the
+    # caller's storage, which ``M.permute(...).contiguous()`` can when
+    # ``M`` is itself a permuted view.
+    soa = torch.empty((cols, rows, B), dtype=M.dtype, device=M.device)
+    soa.copy_(M.permute(2, 1, 0))
+    tau, perm = launch_soa(soa)
+    return (soa.permute(2, 1, 0).contiguous(), tau.t().contiguous(),
+            perm.t().to(torch.int64))
+
+
+def launch_soa(soa: torch.Tensor):
+    """Launch the kernel on a contiguous CUDA structure-of-arrays buffer
+    ``soa`` (cols, rows, B), which it overwrites with the packed result;
+    returns ``(tau (kmax, B), perm (cols, B) int32)``.  The one place the
+    kernel is launched and counted."""
+    cols, rows, B = soa.shape
+    if not (soa.is_cuda and soa.is_contiguous() and soa.dtype in _CTYPES
+            and in_gate(rows, cols)):
+        raise ValueError("launch_soa takes a contiguous CUDA float32/float64 "
+                         "(cols, rows, B) buffer inside the kernel's gate")
+    lib = _library()
+    with torch.cuda.device(soa.device):
+        tau = torch.empty((min(rows, cols), B), dtype=soa.dtype,
+                          device=soa.device)
+        perm = torch.empty((cols, B), dtype=torch.int32, device=soa.device)
+        if B > 0:
+            stream = torch.cuda.current_stream().cuda_stream
+            cpqr_batched_packed.launches += 1
+            err = getattr(lib, _CTYPES[soa.dtype])(
+                soa.data_ptr(), tau.data_ptr(), perm.data_ptr(), rows, cols,
+                B, stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"cpqr_batched kernel launch failed: "
+                    f"{lib.cpqr_batched_error_string(err).decode()} ({err})")
+    return tau, perm
+
+
+cpqr_batched_packed.launches = 0
+
+
+def unpack_batched(packed: torch.Tensor, tau: torch.Tensor,
+                   perm: torch.Tensor) -> CPQRF:
+    """Packed batch -> batched :class:`CPQRF` with one WY panel
+    (nb = kmax): R = triu, V = strict lower part with a unit diagonal
+    where ``tau > 0``, T, diag; every field carries the lane axis."""
+    B, rows, cols = packed.shape
+    kmax = min(rows, cols)
+    ridx = torch.arange(rows, device=packed.device)[:, None]
+    kcol = torch.arange(kmax, device=packed.device)[None, :]
+    Bk = packed[:, :, :kmax]
+    V = torch.where(ridx > kcol, Bk, torch.zeros_like(Bk[:1, :1, :1]))
+    V = V + ((ridx == kcol) & (tau[:, None, :] > 0)).to(packed.dtype)
+    R = torch.triu(packed[:, :kmax, :])
+    return CPQRF(R=R, perm=perm, V=V, tau=tau, T=_panel_T(V, tau, kmax),
+                 diag=torch.diagonal(R, dim1=-2, dim2=-1).clone())
+
+
+def cpqr_blocked_batched(M: torch.Tensor, *, device=None) -> CPQRF:
+    """Batched :class:`CPQRF` (leading B axis) of tiny matrices through
+    the kernel.  Runs on ``device`` (default: the card; raises if there
+    is none)."""
+    M = torch.as_tensor(M).to(resolve_device(device))
+    return unpack_batched(*cpqr_batched_packed(M))

@@ -13,7 +13,9 @@ so the same functions can serve a batched solve later.
 * :func:`pseudo_rank` — the reference's diagonal-based numerical rank
   with its deliberate ``sqrt(len)`` tolerance factor.
 
-``k``/``length`` arguments may be Python ints or 0-d tensors.
+``k``/``length`` arguments may be Python ints or per-lane tensors (0-d
+for one solve, ``(B,)`` for a batch); vectors and matrices may carry
+leading lane axes.  :func:`cpqr` itself is single-matrix.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._lanes import ex
 from .blocked_qr import _householder_col
 
 
@@ -71,18 +74,19 @@ def pseudo_rank(diag: torch.Tensor, length, eps_rank) -> torch.Tensor:
     With ``tol = |d_0| * sqrt(length) * eps_rank`` the rank is the length
     of the leading run of entries with ``|d_i| > tol``; 0 if the diagonal
     is empty or ``|d_0| < eps_rank``.  Entries ``>= length`` are ignored.
-    Returns a 0-d int64 tensor."""
-    k = diag.shape[0]
+    ``diag`` is (..., k) and ``length`` a per-lane count; returns a
+    per-lane int64 tensor."""
+    k = diag.shape[-1]
     dev = diag.device
     length = torch.as_tensor(length, device=dev)
     if k == 0:
-        return torch.zeros((), dtype=torch.int64, device=dev)
+        return torch.zeros(diag.shape[:-1], dtype=torch.int64, device=dev)
     idx = torch.arange(k, device=dev)
-    d0 = diag[0].abs()
+    d0 = diag[..., 0].abs()
     flen = torch.clamp(length, min=1).to(diag.dtype)
     tol = d0 * torch.sqrt(flen) * eps_rank
-    ok = (diag.abs() > tol) & (idx < length)
-    r = torch.sum(torch.cumprod(ok.to(torch.int64), dim=0))
+    ok = (diag.abs() > ex(tol)) & (idx < ex(length))
+    r = torch.sum(torch.cumprod(ok.to(torch.int64), dim=-1), dim=-1)
     return torch.where((length <= 0) | (d0 < eps_rank),
                        torch.zeros_like(r), r)
 
@@ -90,26 +94,29 @@ def pseudo_rank(diag: torch.Tensor, length, eps_rank) -> torch.Tensor:
 def _masked_tri(Rk: torch.Tensor, k) -> torch.Tensor:
     """Doctor R so only its leading k x k block takes part in a solve:
     entries outside the block become the identity."""
-    c = Rk.shape[0]
+    c = Rk.shape[-1]
     i = torch.arange(c, device=Rk.device)
-    inblk = (i[:, None] < k) & (i[None, :] < k)
+    k2 = ex(k, 2)
+    inblk = (i[:, None] < k2) & (i[None, :] < k2)
     return torch.where(inblk, Rk, torch.eye(c, dtype=Rk.dtype,
                                             device=Rk.device))
 
 
 def _solve_masked(R: torch.Tensor, b: torch.Tensor, k, upper: bool
                   ) -> torch.Tensor:
-    c = R.shape[0]
+    c = R.shape[-2]
     i = torch.arange(c, device=R.device)
-    Rm = _masked_tri(R[:, :c], k)
-    live = i < k
-    bm = torch.where(live, b[:c], torch.zeros_like(b[:c]))
-    x = torch.linalg.solve_triangular(Rm, bm[:, None], upper=upper)[:, 0]
+    Rm = _masked_tri(R[..., :, :c], k)
+    live = i < ex(k)
+    bc = b[..., :c]
+    bm = torch.where(live, bc, torch.zeros_like(bc))
+    x = torch.linalg.solve_triangular(Rm, bm[..., None], upper=upper)[..., 0]
     return torch.where(live, x, torch.zeros_like(x))
 
 
 def solve_upper(R: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
-    """x[:k] = R[:k,:k]^-1 b[:k]; x[k:] = 0."""
+    """x[:k] = R[:k,:k]^-1 b[:k]; x[k:] = 0 (per lane; ``k`` may be a
+    Python int or a per-lane tensor)."""
     return _solve_masked(R, b, k, upper=True)
 
 
@@ -119,17 +126,16 @@ def solve_lower(L: torch.Tensor, b: torch.Tensor, k) -> torch.Tensor:
 
 
 def invperm(perm: torch.Tensor) -> torch.Tensor:
-    """Inverse permutation: out[perm[i]] = i."""
-    out = torch.empty_like(perm)
-    out[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
-                             device=perm.device)
-    return out
+    """Inverse permutation along the last axis: out[perm[i]] = i."""
+    ar = torch.arange(perm.shape[-1], dtype=perm.dtype, device=perm.device)
+    return torch.empty_like(perm).scatter_(-1, perm, ar.expand_as(perm))
 
 
 def prefix_dot(v: torch.Tensor, k) -> torch.Tensor:
-    """<v[:k], v[:k]> with ``k`` an int or 0-d tensor."""
-    idx = torch.arange(v.shape[0], device=v.device)
-    return torch.sum(torch.where(idx < k, v * v, torch.zeros_like(v)))
+    """<v[:k], v[:k]> per lane, ``k`` an int or a per-lane tensor."""
+    idx = torch.arange(v.shape[-1], device=v.device)
+    return torch.sum(torch.where(idx < ex(k), v * v, torch.zeros_like(v)),
+                     dim=-1)
 
 
 def prefix_norm(v: torch.Tensor, k) -> torch.Tensor:

@@ -22,14 +22,16 @@ from ..core.subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
 from ..core.types import Carry, Counters, PrevIter, Tols, WorkingView
 from ..ops.blocked_qr import CPQRF
 from ..ops.qr import CPQR
+from ..parallel.batch import BatchResult
 
 STRUCTURES = {cls.__name__: cls for cls in (
     CPQR, CPQRF, ActiveConstraint, FactorA, FactorL11, FactorJ2, GNResult,
     PrevIter, Carry, Tols, Counters, WorkingView, WorkingSetRound, WSRound1,
-    AnalysResult, SteplengthResult)}
+    AnalysResult, SteplengthResult, BatchResult)}
 
 # Fields the port keeps as host values (Python int / bool) where the
-# reference keeps 0-d arrays.
+# reference keeps 0-d arrays.  In a batched structure (a leading lane
+# axis on every field) they stay per-lane tensors on both sides.
 HOST_FIELDS = {
     "Carry": {"nb_newton_steps", "nb_iter", "exit_code", "n_display"},
     "Counters": {"nb_res", "nb_jacres", "nb_cons", "nb_jaccons"},
@@ -68,7 +70,8 @@ def from_reference(tree, device, dtype):
             if k not in fields:
                 continue        # a field the port does not carry
             v = fields[k]
-            out[k] = (np.asarray(v).item() if k in host
+            out[k] = (np.asarray(v).item()
+                      if k in host and np.ndim(v) == 0
                       else from_reference(v, device, dtype))
         return cls(**out)
     if isinstance(tree, (list, tuple)):

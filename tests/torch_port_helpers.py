@@ -112,3 +112,57 @@ def twin_functions(seed, n, m, q, n_ineq, lower=(), upper=(), dup_eq=False,
     l = q + n_ineq + len(lower) + len(upper)
     return (twin_jax_functions(d, lower, upper),
             twin_torch_functions(d, lower, upper), x0, (n, m, q, l))
+
+
+# ------------------------------------------------------ batched solves
+
+def lane_of(carry, b):
+    """Lane ``b`` of a batched port ``Carry`` as one solve's carry (host
+    ints where one solve keeps host ints, its own display buffer)."""
+    from enlsip_tpu_torch.core.types import Counters
+
+    def pick(v):
+        if isinstance(v, tuple):
+            return type(v)(*(pick(u) for u in v))
+        return v[b]
+
+    one = pick(carry)
+    return one._replace(
+        nb_newton_steps=int(one.nb_newton_steps), nb_iter=int(one.nb_iter),
+        exit_code=int(one.exit_code), n_display=int(one.n_display),
+        counters=Counters(*(int(k) for k in one.counters)),
+        display=one.display.clone())
+
+
+def flat_fields(nt, prefix=""):
+    """A (nested) NamedTuple as {dotted field name: tensor}."""
+    out = {}
+    for k, v in zip(nt._fields, nt):
+        if isinstance(v, tuple) and hasattr(v, "_fields"):
+            out.update(flat_fields(v, prefix + k + "."))
+        else:
+            out[prefix + k] = torch.as_tensor(v)
+    return out
+
+
+def hs65_batch_setup(B=8, seed=0):
+    """HS65 on both sides: (jax fns, torch fns, starts (B, 3), dims
+    tuple, JAX-side default tolerances as floats)."""
+    import enlsip_tpu as ej
+    import enlsip_tpu_torch as et
+    import problems as jprob
+    from enlsip_tpu.core.driver import Functions as JF
+    from enlsip_tpu.models.model import build_constraint_functions as jbuild
+    from enlsip_tpu_torch.core.driver import Functions as TF
+    from enlsip_tpu_torch.models.model import _model_functions
+    from enlsip_tpu_torch.problems import classic as tprob
+
+    jcons, jjac = jbuild(ej.CnlsModel(**jprob.HS65))
+    jf = JF(res=jprob.HS65["residuals"],
+            jac_res=jprob.HS65["jacobian_residuals"], cons=jcons,
+            jac_cons=jjac)
+    tf = TF(*_model_functions(et.CnlsModel(**tprob.HS65), F64, CPU))
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(tprob.HS65["starting_point"])
+    starts = x0[None, :] + 0.3 * rng.normal(size=(B, 3))
+    return jf, tf, starts, (3, 3, 0, 7)
