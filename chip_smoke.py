@@ -11,12 +11,24 @@ at once and prints no result.  It builds the CUDA kernels from
 its plain PyTorch version on the card at the shapes the main path gives
 it, drives the main paths through the public entry points —
 ``solve(CnlsModel)`` on Chained Rosenbrock n=1000 at float32 and
-float64, and ``solve_batched`` on HS65 x 4096 lanes and on the ODE
-parameter fit x 10,000 lanes with per-lane observations at float32 —
+float64, ``solve_batched`` on HS65 x 4096 lanes and on the ODE
+parameter fit x 10,000 lanes with per-lane observations at float32, and
+the giant-m solve (5,000,000 residual rows x 100 parameters x 50
+constraints, float32) in the four configurations that reach the four
+fused WY kernels —
 solves three small problems that take the rank-deficient, subspace and
 Newton branches, checks four float64 batch lanes against their single
 solves, and prints one JSON object per line.  The last line is
 ``{"ok": true, "device": {...}}``.  Any failed check raises.
+
+Lines of the giant-m slice: ``wy_kernel_cases`` holds each of the four
+entry points of ``ops/wy_hopper.py`` against its plain version at every
+listed shape in both dtypes (relative errors, equal bits of two launches,
+kernel / plain / bound times); ``giant_m`` lists the four configurations
+(a: factored hooks, no second derivatives; b: factored hooks, second
+derivatives; c: dense Jacobian; d: dense, ``tall_qr="qr"``) with seconds
+per solve, iterations, exit code, active constraints, launches of each
+kernel, read-backs per iteration and peak device memory.
 
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
@@ -46,6 +58,7 @@ from enlsip_tpu_torch.ops import _build
 from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain, q_apply,
                                              unpack_packed)
 from enlsip_tpu_torch.core.driver import Functions
+from enlsip_tpu_torch.core.driver import solve as core_solve
 from enlsip_tpu_torch.models.model import (_model_functions,
                                            build_constraint_functions,
                                            total_nb_constraints)
@@ -53,8 +66,11 @@ from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
     cpqr_batched_packed, cpqr_batched_packed_plain, launch_soa,
     unpack_batched)
 from enlsip_tpu_torch.ops.cpqr_hopper import cpqr_hopper
+from enlsip_tpu_torch.ops import wy_hopper as wy
+from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
 from enlsip_tpu_torch.parallel import run_batch, solve_batched
 from enlsip_tpu_torch.problems import ode_fit
+from enlsip_tpu_torch.problems.giant_m import giant_m
 from enlsip_tpu_torch.problems.classic import (HS65, HS65_FSTAR, OSBORNE2,
                                                chained_rosenbrock,
                                                chained_wood)
@@ -371,6 +387,218 @@ def check_batched_kernels():
             for case in batched_kernel_cases()]
 
 
+# ------------------------------------------ fused WY kernels (B3-B6)
+
+GIANT_M, GIANT_N, GIANT_L = 5_000_000, 100, 50
+# (name, m, n, k, on the main path)
+WY_CASES = [
+    ("giant-m main path", GIANT_M, GIANT_N, GIANT_L, True),
+    ("2M x 100, k = 20", 2_000_000, 100, 20, False),
+    ("8192 x 16, k = 5", 8192, 16, 5, False),
+    ("ragged 4100 x 7, k = 3", 4100, 7, 3, False),
+    ("k = 1", 65_537, 32, 1, False),
+    ("k = n", 8192, 16, 16, False),
+]
+WY_NAMES = ["wy_right_apply", "wy_gram_project", "wy_gram_project_rowscale",
+            "wy_gram_project_noapply"]
+# relative to max |JQ1| for JQ1 and to the norms of G and p
+WY_TOL = {torch.float64: {"JQ1": 1e-11, "G": 1e-11, "p": 1e-11},
+          torch.float32: {"JQ1": 5e-6, "G": 2e-5, "p": 2e-5}}
+
+
+def wy_bound(name, m, n, k, dtype):
+    """Contract bound of one call: J (or the base) read once, JQ1 written
+    once where there is one, rx, s, V, W read, G and p written, over the
+    memory rate; 4 m n k operations for the two small products plus
+    2 m n^2 + 2 m n for the Gram and the projection, over the peak."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    gram = name != "wy_right_apply"
+    elems = m * n + 2 * n * k
+    if name != "wy_gram_project_noapply":
+        elems += m * n
+    if gram:
+        elems += m + n * n + n
+    if "rowscale" in name or "noapply" in name:
+        elems += m
+    flops = 4 * m * n * k + (2 * m * n * n + 2 * m * n if gram else 0)
+    t_bytes = elems * itemsize / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _rel(got, want, norm=False):
+    if norm:
+        return float(torch.linalg.norm(got.double() - want)
+                     / torch.linalg.norm(want))
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+def check_wy_case(name, m, n, k, main_path, dtype):
+    """The four entry points on one set of inputs.  The reference is the
+    plain version in float64 (for float64 inputs: the plain version
+    itself); the row scale has entries of both signs."""
+    g = torch.Generator(device=DEV).manual_seed(m + n + k)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=DEV,
+                                     dtype=dtype)
+    J, rx, s = rnd(m, n), rnd(m), rnd(m) + 0.5
+    f = cpqr_blocked(rnd(n, k).double(), device=DEV)
+    V, T = (a.to(dtype).contiguous() for a in _panels(f)[0])
+    d = torch.float64
+    J64 = J.to(d)
+    refs = {False: wy.wy_gram_project_plain(J64, V.to(d), T.to(d), rx.to(d)),
+            True: wy.wy_gram_project_plain(J64, V.to(d), T.to(d), rx.to(d),
+                                           s.to(d))}
+    del J64
+    calls = {
+        "wy_right_apply": (lambda: (wy.wy_right_apply(J, V, T),),
+                           lambda: (wy.wy_right_apply_plain(J, V, T),),
+                           refs[False][:1], ("JQ1",)),
+        "wy_gram_project": (lambda: wy.wy_gram_project(J, V, T, rx),
+                            lambda: wy.wy_gram_project_plain(J, V, T, rx),
+                            refs[False], ("JQ1", "G", "p")),
+        "wy_gram_project_rowscale": (
+            lambda: wy.wy_gram_project(J, V, T, rx, s),
+            lambda: wy.wy_gram_project_plain(J, V, T, rx, s),
+            refs[True], ("JQ1", "G", "p")),
+        "wy_gram_project_noapply": (
+            lambda: wy.wy_gram_project_noapply(J, V, T, rx, s),
+            lambda: wy.wy_gram_project_noapply_plain(J, V, T, rx, s),
+            refs[True][1:], ("G", "p")),
+    }
+    out = []
+    reps = 3 if m * n >= 10 ** 8 else 10
+    for kernel, (run, plain, want, parts) in calls.items():
+        got, again = run(), run()
+        torch.cuda.synchronize()
+        bits_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        errs = {part: _rel(gt, w, norm=part != "JQ1")
+                for part, gt, w in zip(parts, got, want)}
+        assert bits_equal, f"{kernel} {name}: two launches differ"
+        for part, e in errs.items():
+            assert e <= WY_TOL[dtype][part], (kernel, name, str(dtype), part, e)
+        assert all(bool(torch.isfinite(gt).all()) for gt in got)
+        del got, again
+        ms = cuda_ms(run, reps=reps)
+        plain_ms = cuda_ms(plain, reps=reps)
+        bound_ms, bound_by = wy_bound(kernel, m, n, k, dtype)
+        out.append({"kernel": kernel, "case": name, "shape": [m, n, k],
+                    "dtype": str(dtype).replace("torch.", ""),
+                    "main_path": main_path, "bits_equal": bits_equal,
+                    "rel_err": errs, "max_abs_err": max(errs.values()),
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
+    return out
+
+
+def check_wy_kernels():
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        for case in WY_CASES:
+            cases += check_wy_case(*case, dtype)
+            torch.cuda.empty_cache()
+    return cases
+
+
+# ----------------------------------------------------- giant-m main path
+
+# name -> (factored hooks, second_derivatives, tall_qr, the kernel it reaches)
+GIANT_CONFIGS = {
+    "a": (True, False, "cholqr", "wy_gram_project_noapply"),
+    "b": (True, True, "cholqr", "wy_gram_project_rowscale"),
+    "c": (False, False, "cholqr", "wy_gram_project"),
+    "d": (False, False, "qr", "wy_right_apply"),
+}
+
+
+def _giant_solve(gm, config, max_iter=8):
+    factored, second, tall_qr, _ = GIANT_CONFIGS[config]
+    last = {}
+    res = core_solve(
+        gm.factored if factored else gm.dense, gm.x0, gm.dims,
+        et.Options(second_derivatives=second, max_iter=max_iter,
+                   tall_qr=tall_qr),
+        et.Tols.for_dtype(torch.float32, DEV), dtype=torch.float32,
+        on_iteration=lambda c: last.update(mask=c.active_mask))
+    torch.cuda.synchronize()
+    return res, int(last["mask"].sum())
+
+
+def solve_giant_m():
+    """The giant-m problem of the reference benchmark (5,000,000 x 100,
+    50 inequalities, float32, max_iter = 8, data drawn on the card) in
+    the four configurations, each after one warm-up solve, with every
+    count set to 0 just before the timed solve and read just after."""
+    torch.cuda.empty_cache()
+    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32)
+    out, x_a = [], None
+    for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
+        _giant_solve(gm, config)                          # warm-up
+        torch.cuda.empty_cache()
+        wy.reset_launch_counts()
+        cpqr_hopper.launches = 0
+        _device.reset_readback_count()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res, n_active = _giant_solve(gm, config)
+        seconds = time.time() - t0
+        launches = wy.launch_counts()
+        readbacks = _device.readback_count()
+        x = res.x.double()
+        row = {"config": config, "factored_hooks": factored,
+               "second_derivatives": second, "tall_qr": tall_qr,
+               "kernel": kernel, "seconds_per_solve": seconds,
+               "iterations": res.n_iter, "exit_code": res.exit_code,
+               "objective": res.f, "active_constraints": n_active,
+               "launches": launches,
+               "launches_per_iteration": launches[kernel] / max(res.n_iter, 1),
+               "host_readbacks_per_iteration": readbacks / max(res.n_iter, 1),
+               "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+               "max_abs_x_minus_blo": float(
+                   (res.x[:5] - gm.blo).abs().max())}
+        assert res.exit_code > 0, row
+        assert bool(torch.isfinite(res.x).all()) and res.x.shape == (GIANT_N,)
+        assert n_active >= 5 and row["max_abs_x_minus_blo"] <= 1e-3, row
+        assert launches[kernel] > 0, row
+        assert all(v == 0 for name, v in launches.items()
+                   if name != kernel), row
+        if x_a is None:
+            x_a = x
+        row["rel_dx_vs_a"] = float(torch.linalg.norm(x - x_a)
+                                   / torch.linalg.norm(x_a))
+        assert row["rel_dx_vs_a"] <= 1e-3, row
+        out.append(row)
+    return out, gm
+
+
+def _wy_kernel_entries(wcases, giant):
+    lines = {"wy_right_apply": 52, "wy_gram_project": 60,
+             "wy_gram_project_rowscale": 86, "wy_gram_project_noapply": 118}
+    by_kernel = {row["kernel"]: row for row in giant}
+    entries = []
+    for name in WY_NAMES:
+        mine = [c for c in wcases if c["kernel"] == name]
+        head = next(c for c in mine if c["main_path"]
+                    and c["dtype"] == "float32")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "enlsip_tpu_torch/csrc/wy_gram.cu",
+            "replaces": f"enlsip_tpu/ops/pallas_wy.py:{lines[name]}",
+            "launches": by_kernel[name]["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "tolerance": "relative to max |JQ1| (JQ1) and to the norms of G "
+                         "and p: float64 vs the plain version 1e-11; float32 "
+                         "vs the plain version in float64 5e-6 (JQ1), 2e-5 "
+                         "(G, p); two launches give equal bits",
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": None,
+            "timed_at": "5000000 x 100, k = 50, float32 (the giant-m main "
+                        "path); plain_ms is the chain of library matrix "
+                        "products, not a single call",
+            "cases": mine})
+    return entries
+
+
 # ------------------------------------------------------------ main path
 
 def solve_cr1000(dtype):
@@ -641,6 +869,8 @@ def main() -> None:
 
     cases = check_kernels()
     bcases = check_batched_kernels()
+    wcases = check_wy_kernels()
+    emit({"wy_kernel_cases": wcases})
     l2_rate = l2_copy_rate()
     if "--kernels-only" in sys.argv:
         emit({"kernel_cases": cases, "batched_kernel_cases": bcases,
@@ -657,7 +887,11 @@ def main() -> None:
     ode_stats = batched_ode_fit()
     emit({"batched_ode_fit": ode_stats})
     emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
+    giant, gm = solve_giant_m()
+    emit({"giant_m": giant})
     if "--profile" in sys.argv:
+        emit({"profile_giant_m_a": profile_solve(
+            lambda: _giant_solve(gm, "a"))})
         kw = chained_rosenbrock(1000)
         emit({"profile": profile_solve(lambda: et.solve(
             et.CnlsModel(**kw), dtype=torch.float32))})
@@ -692,7 +926,8 @@ def main() -> None:
         "library_ms": None,
         "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000)",
         "l2_copy_GBps": l2_rate,
-        "cases": cases}, _batched_kernel_entry(bcases, launches_batched)]})
+        "cases": cases}, _batched_kernel_entry(bcases, launches_batched),
+        *_wy_kernel_entries(wcases, giant)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

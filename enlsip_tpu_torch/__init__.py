@@ -13,6 +13,15 @@ Entry points — ``solve(CnlsModel)``, ``core_solve``, and in
 ``solve_multistart`` (B same-shaped instances in lockstep) — run on the
 CUDA device unless the caller passes
 ``device="cpu"``; with no device and no such argument they raise.
+
+A single solve whose residual Jacobian is tall (rows >= 32 n and rows >=
+4096) takes the two-stage factorizations of ``ops/tsqr.py`` and the
+fused WY kernels of ``ops/wy_hopper.py``: ``Options.tall_qr`` picks
+CholeskyQR ("cholqr", default) or a Householder first stage ("qr"), and
+``Functions`` takes three optional hooks for residuals of the form
+phi(W x): ``res_trial`` (line-search trials along a ray in O(m)) and
+``jac_rowscale`` / ``jac_base`` (the Jacobian as diag(s) @ base, never
+materialized).  ``problems/giant_m.py`` holds the benchmark's problem.
 """
 
 from .core.driver import Functions, SolveResult, solve as core_solve

@@ -42,24 +42,42 @@ def bind_data(fns: Functions, d) -> Functions:
 
     With per-lane data, the ``Functions`` members take ``(x, data)``;
     binding turns them back into the ``(x)``-only closures the core
-    solver calls.  No data returns ``fns`` unchanged."""
+    solver calls (``res_trial(x, p, data)`` likewise).  No data returns
+    ``fns`` unchanged."""
     if not has_data(d):
         return fns
     return Functions(res=lambda x: fns.res(x, d),
                      jac_res=lambda x: fns.jac_res(x, d),
                      cons=lambda x: fns.cons(x, d),
-                     jac_cons=lambda x: fns.jac_cons(x, d))
+                     jac_cons=lambda x: fns.jac_cons(x, d),
+                     res_trial=(None if fns.res_trial is None else
+                                (lambda x, p: fns.res_trial(x, p, d))))
 
 
 def lane_functions(fns: Functions, data=None) -> Functions:
     """The user's per-lane closures mapped over the lane axis
     (``torch.func.vmap``): each takes ``x`` (B, n) and evaluates lane i
-    at ``x[i]`` with ``data`` sliced at i."""
+    at ``x[i]`` with ``data`` sliced at i.  A ``res_trial`` factory is
+    mapped as a whole: the lifted ``res_trial(x, p)(alpha)`` evaluates
+    lane i's factory at ``(x[i], p[i])`` and its closure at ``alpha[i]``
+    (the factory's ray set-up is therefore redone per trial; the hook's
+    saving is a single solve's).  The factored-Jacobian members are not
+    carried: a batch rejects them (``parallel.batch.init_batch``)."""
     if has_data(data):
         lift = lambda f: (lambda x: torch.func.vmap(f)(x, data))
     else:
         lift = lambda f: torch.func.vmap(f)
-    return Functions(*(lift(f) for f in fns))
+    res_trial = None
+    if fns.res_trial is not None:
+        if has_data(data):
+            one = lambda x, p, a, d: fns.res_trial(x, p, d)(a)
+            res_trial = lambda x, p: (
+                lambda a: torch.func.vmap(one)(x, p, a, data))
+        else:
+            one = lambda x, p, a: fns.res_trial(x, p)(a)
+            res_trial = lambda x, p: (lambda a: torch.func.vmap(one)(x, p, a))
+    return Functions(lift(fns.res), lift(fns.jac_res), lift(fns.cons),
+                     lift(fns.jac_cons), res_trial)
 
 
 def lane_hessians(fns: Functions, data=None):

@@ -65,23 +65,61 @@ from .working_set import (check_constraint_deletion,
 class Functions(NamedTuple):
     """User callables on tensors (Jacobians resolved by the models
     layer): r(x) (m,), its Jacobian (m, n), c(x) (l,), its Jacobian
-    (l, n)."""
+    (l, n).
+
+    ``res_trial`` (optional): a directional-evaluation factory
+    ``res_trial(x, p) -> (alpha -> r(x + alpha*p))`` for problems whose
+    residual is cheap along a ray — e.g. r(x) = phi(W@x) with a giant
+    (m, n) W: the factory computes W@x and W@p ONCE per step-length
+    computation and every line-search trial costs O(m) instead of an
+    O(m n) stream of W.  The default (None) is the black-box form
+    ``lambda a: res(x + a*p)``.  Trial evaluations bump the residual
+    counter exactly like the black box (it counts semantic evaluations
+    of r).
+
+    ``jac_rowscale`` / ``jac_base`` (optional, set together): a FACTORED
+    residual Jacobian ``J(x) = diag(jac_rowscale(x)) @ jac_base()`` — the
+    shape of every phi(W@x)-style fit, where J is a row-scaled constant
+    matrix.  The solver then never materializes J: the carry's J slot
+    holds the (m, 1) scale, the WY right-apply streams the base with the
+    scale fused in the kernel (``ops/wy_hopper.py``), and J@v / J^T u
+    become base products with O(m) scaling.  Single solves only
+    (``init_carry`` / ``iterate_body`` / ``solve``); ``solve_batched``
+    rejects it.  When set, ``jac_res`` may be None (it is not called)."""
 
     res: Callable
-    jac_res: Callable
+    jac_res: Optional[Callable]
     cons: Callable
     jac_cons: Callable
+    res_trial: Optional[Callable] = None
+    jac_rowscale: Optional[Callable] = None
+    jac_base: Optional[Callable] = None
 
 
 def new_point(fns: Functions, x, counters: Counters):
     """new_point!: evaluate r, J, c, A (4 evaluations).  The solve dtype
-    (x's) is authoritative: user closures are cast at this boundary."""
+    (x's) is authoritative: user closures are cast at this boundary.  In
+    factored mode the J slot holds the (m, 1) row scale."""
     dt = x.dtype
     rx = fns.res(x).to(dt)
-    J = fns.jac_res(x).to(dt)
+    if fns.jac_rowscale is not None:
+        J = fns.jac_rowscale(x).to(dt)[..., None]
+    else:
+        J = fns.jac_res(x).to(dt)
     cx = fns.cons(x).to(dt)
     A = fns.jac_cons(x).to(dt)
     return rx, J, cx, A, counters.bump(res=1, jacres=1, cons=1, jaccons=1)
+
+
+def _jac_base(fns: Functions):
+    return fns.jac_base() if fns.jac_base is not None else None
+
+
+def _grad_f(fns: Functions, J, rx):
+    """gf = J^T rx; factored mode: base^T (s * rx)."""
+    if fns.jac_base is not None:
+        return mtv(fns.jac_base(), J[..., 0] * rx)
+    return mtv(J, rx)
 
 
 class WorkingSetRound(NamedTuple):
@@ -119,13 +157,23 @@ def _factor_stage1(mask, A, cx, gf, dims: Dims, scaling: bool, eps_rank,
     return view, t, act, F_A, rankA, F_L11
 
 
+class _Tall(NamedTuple):
+    """How GNSRCH treats the residual Jacobian: the tall factorization
+    (``Options.tall_qr``), the constant base of a factored Jacobian, and
+    whether the JQ1 write is elided (see ``gn_search_direction``)."""
+
+    tall_qr: str = "cholqr"
+    jac_base: Optional[torch.Tensor] = None
+    elide_jq1: bool = False
+
+
 def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
-                   eps_rank, rdims=None, lanes=None):
+                   eps_rank, rdims=None, lanes=None, tall=_Tall()):
     """One full factorization round: gather/scale -> F_A -> (F_L11) -> GN."""
     view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
                                                      scaling, eps_rank, lanes)
     gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
-                             rdims)
+                             rdims, **tall._asdict())
     return view, t, act, F_A, F_L11, gn
 
 
@@ -151,14 +199,15 @@ class WSRound1(NamedTuple):
 def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
                scaling: bool, tols: Tols, view, t, act, F_A, rankA,
                F_L11, rdims=None, stall_hint=True,
-               rank_deficient_deletion: bool = True) -> WSRound1:
+               rank_deficient_deletion: bool = True,
+               tall=_Tall()) -> WSRound1:
     """WRKSET round 1 given stage-1 factorization results: GN direction,
     both multiplier estimates, and the round-2 decision.  Control-flow
     free apart from the dtype-static D13 block."""
     rd = rdims_or(rdims, dims)
     eps_rank = tols.eps_rank
     gn = gn_search_direction(J, rx, act, F_A, F_L11, rankA, t, eps_rank, dims,
-                             rdims)
+                             rdims, **tall._asdict())
     lam, grad_res = first_mult_estimate(F_A, act, t, dims, scaling, eps_rank)
     s = check_constraint_deletion(rd.q, lam, act.valid, t, scaling,
                                   act.diag_scale, grad_res)
@@ -172,7 +221,8 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
         (gn.rankJ2 == torch.minimum(
             rd.n - gn.rankA, torch.as_tensor(rd.m, device=t.device)))
     lam2 = second_mult_estimate(F_A, gn.JQ1, rx, J, gn.p, t, act, dims,
-                                scaling)
+                                scaling, F_J2=gn.F_J2, y_gn=gn.y,
+                                jac_base=tall.jac_base)
     lam_sel = torch.where(ex(full_rank), lam2, lam)
     s2 = check_constraint_deletion(rd.q, lam2, act.valid, t, scaling,
                                    act.diag_scale,
@@ -218,14 +268,15 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
 
 
 def _ws_round2(r1: WSRound1, mask, A, cx, rx, J, gf, dims: Dims,
-               scaling: bool, eps_rank, rdims=None, lanes=None):
+               scaling: bool, eps_rank, rdims=None, lanes=None,
+               tall=_Tall()):
     """WRKSET second-order deletion round: drop the suggested constraint
     and re-run the full factorization chain."""
     s2c = torch.clamp(r1.s2, min=0)
     gidx = take1(r1.view.active_list, s2c)
     mask2 = mask & (torch.arange(dims.l, device=mask.device) != ex(gidx))
     view2, t2, act2, F_A2, F_L11_2, gn2 = _factor_and_gn(
-        mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims, lanes)
+        mask2, A, cx, rx, J, gf, dims, scaling, eps_rank, rdims, lanes, tall)
     # Compact lam2: new slot j maps to old slot j (+1 past s2).
     tmax = dims.tmax
     j = torch.arange(tmax, device=mask.device)
@@ -248,22 +299,26 @@ def _ws_keep(r1: WSRound1, mask) -> WorkingSetRound:
 
 def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
                        opts: Options, tols: Tols, rdims=None,
-                       stall_hint=True, lanes=None) -> WorkingSetRound:
+                       stall_hint=True, lanes=None, jac_base=None,
+                       elide_jq1: bool = False) -> WorkingSetRound:
     """WRKSET, see the module docstring for the branch analysis.  For a
     batch, round 1 always runs; F_L11 and the second-order deletion
     round run only when some live lane (``lanes``) needs them, and the
-    other lanes keep their round-1 values."""
+    other lanes keep their round-1 values.  ``jac_base`` / ``elide_jq1``:
+    factored-Jacobian mode, see ``gn_search_direction``."""
     scaling = opts.scaling
     eps_rank = tols.eps_rank
+    tall = _Tall(opts.tall_qr, jac_base, elide_jq1)
     view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
                                                      scaling, eps_rank, lanes)
     r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
                     tols, view, t, act, F_A, rankA, F_L11, rdims, stall_hint,
-                    opts.rank_deficient_deletion)
+                    opts.rank_deficient_deletion, tall)
     return cond(r1.do2,
                 lambda: _ws_round2(r1, mask, A, cx, rx, J, gf, dims, scaling,
                                    eps_rank, rdims,
-                                   None if lanes is None else lanes & r1.do2),
+                                   None if lanes is None else lanes & r1.do2,
+                                   tall),
                 lambda: _ws_keep(r1, mask), lanes)
 
 
@@ -297,8 +352,8 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
         progress=f(0.0), predicted_reduction=f(0.0),
         rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
     return Carry(
-        x=x0, rx=rx, cx=cx, J=J, A=A, gf=mtv(J, rx), active_mask=mask, w=w0,
-        K=K, prev=prev,
+        x=x0, rx=rx, cx=cx, J=J, A=A, gf=_grad_f(fns, J, rx),
+        active_mask=mask, w=w0, K=K, prev=prev,
         restart=torch.zeros(lead, dtype=torch.bool, device=dev),
         index_del=i(-1), nb_newton_steps=host(0), nb_iter=host(0),
         exit_code=host(0), counters=counters,
@@ -333,9 +388,14 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     cx_sum_start = dot(cx, cx)
 
     # --- EVSCAL + WRKSET ------------------------------------------------
+    jb = _jac_base(fns)
+    # JQ1-write elision: safe exactly when the Newton branch (the only
+    # true JQ1 reader) is off by option — see gn_search_direction.
+    elide = jb is not None and not opts.second_derivatives
     wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
                              carry.index_del, dims, opts, tols, rdims,
-                             _stall_hint(carry, tols))
+                             _stall_hint(carry, tols), jac_base=jb,
+                             elide_jq1=elide)
     active_cx_sum = _active_cx_sum(wsr, cx, dims)
 
     # --- ANALYS ----------------------------------------------------------
@@ -368,21 +428,25 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     nb_newton = carry.nb_newton_steps + n_newton
 
     # --- STPLNG ----------------------------------------------------------
-    res_trial = lambda xx, pp: (
-        lambda a: fns.res(xx + ex(a.to(xx.dtype)) * pp))
+    if fns.res_trial is not None:
+        res_trial = fns.res_trial
+    else:       # black-box default: res at the trial point
+        res_trial = lambda xx, pp: (
+            lambda a: fns.res(xx + ex(a.to(xx.dtype)) * pp))
     code = ana.code if batched else int(to_host(ana.code))
     sl = compute_steplength(
         res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
         ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
         carry.prev, carry.K, wsr.mask, dims, opts.weight_code, counters,
         opts.linesearch_max_refine, opts.gac_max_halvings,
-        opts.eucmod_max_passes, opts.scaling, lanes)
+        opts.eucmod_max_passes, opts.scaling, lanes,
+        jac_base=_jac_base(fns))
     counters = sl.counters
 
     # --- step + new point --------------------------------------------
     x_new = x + ex(sl.alpha) * ana.p
     rx_new, J_new, cx_new, A_new, counters = new_point(fns, x_new, counters)
-    gf_new = mtv(J_new, rx_new)
+    gf_new = _grad_f(fns, J_new, rx_new)
     rx_sum_new = dot(rx_new, rx_new)
     restart_new = ana.error_code < 0
 

@@ -456,14 +456,18 @@ def compute_steplength(res_trial, cons_fn, x, rx, J, cx, A, act, view, t, p,
                        dimA, rankJ2, code, index_del, prev: PrevIter, K,
                        mask, dims: Dims, weight_code: int, counters: Counters,
                        max_refine: int, gac_max: int, eucmod_max: int,
-                       scaling: bool, lanes=None) -> SteplengthResult:
+                       scaling: bool, lanes=None,
+                       jac_base=None) -> SteplengthResult:
     """STPLNG.
 
     ``res_trial(x, p) -> (alpha -> r(x + alpha*p))``: the directional
-    residual factory, built ONCE here.  ``code`` is the method code of
-    the direction (2 = Newton: undamped step, weights kept): a host int
-    for one solve, a per-lane tensor for a batch.  ``lanes`` (batch
-    only): the live lanes."""
+    residual factory, built ONCE here, so structured problems pay their
+    ray set-up (e.g. W@x, W@p) once per step length.  ``jac_base``:
+    factored mode (``Functions.jac_rowscale``/``jac_base``), where ``J``
+    holds the (m, 1) row scale and J p = s * (base p).  ``code`` is the
+    method code of the direction (2 = Newton: undamped step, weights
+    kept): a host int for one solve, a per-lane tensor for a batch.
+    ``lanes`` (batch only): the live lanes."""
     from .weights import penalty_weight_update
 
     dtype, dev = x.dtype, x.device
@@ -485,7 +489,10 @@ def compute_steplength(res_trial, cons_fn, x, rx, J, cx, A, act, view, t, p,
         on = _both(lanes, code != 2) if batched else None
         res_at = res_trial(x, p)
         tmax = dims.tmax
-        Jp = mv(J, p)
+        if jac_base is not None:
+            Jp = J[..., 0] * mv(jac_base, p)
+        else:
+            Jp = mv(J, p)
         JpAp = torch.cat([Jp, mv(A, p)], dim=-1)
         active_Ap = mv(act.A_act, p)                    # (tmax,)
         if scaling:

@@ -1,5 +1,4 @@
-"""Active-set factorizations, multiplier estimates and search directions
-(dense path).
+"""Active-set factorizations, multiplier estimates and search directions.
 
 Counterpart of ``enlsip_tpu/core/subproblem.py``:
 
@@ -19,8 +18,12 @@ lane axes (see ``_lanes.py``).  Q factors stay
 implicit: the pivoted QR (ops/blocked_qr.py) returns compact-WY
 reflectors, so J @ Q1, Q^T v and Q v are a few matrix products each.
 
-A tall J (rows >= 32 n) takes this dense CPQR path too; the two-stage
-tall factorizations are not part of this module yet.
+A tall J (rows >= 32 n and rows >= 4096) takes the two-stage
+factorizations of ``ops/tsqr.py`` instead of the per-column pivot loop,
+and, with one WY panel and 2-D operands, the fused apply + Gram +
+projection kernels of ``ops/wy_hopper.py``; the residual Jacobian may
+then also arrive factored as ``diag(s) @ base`` (``jac_base``), in which
+case the dense J never exists.
 """
 
 from __future__ import annotations
@@ -29,10 +32,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .._lanes import ex, mtv, mv, put, take, take_rows
-from ..ops.blocked_qr import (CPQRF, cpqr_blocked, q_apply, qt_apply,
-                              right_q_apply)
+from .._lanes import dot, ex, mtv, mv, put, take, take_rows
+from ..ops.blocked_qr import (CPQRF, _panels, cpqr_blocked, q_apply,
+                              qt_apply, right_q_apply)
 from ..ops.qr import invperm, pseudo_rank, solve_lower, solve_upper
+from ..ops.tsqr import (CholQRF, TSQRF, cholqr_cpqr,
+                        qt_apply_cholqr_from_projection, qt_apply_tsqr,
+                        tsqr_cpqr)
+from ..ops.wy_hopper import (use_wy_hopper, wy_gram_project,
+                             wy_gram_project_noapply)
 from .types import Dims, WorkingView, rdims_or
 
 
@@ -83,7 +91,10 @@ class FactorJ2(NamedTuple):
     full-width: columns < rankA are zeroed and pivot last.  Q3 stays
     implicit; ``d = Q3^T (-J1 p1 - rx)`` is computed per use."""
 
-    f: CPQRF           # R (min(m,n), n), V (m, kp), T, perm, diag
+    # CPQRF: R (min(m,n), n), V (m, kp), T, perm, diag; or one of the
+    # two-stage forms of a tall panel (ops/tsqr.CholQRF, TSQRF), which
+    # expose R, perm and diag with the same shapes
+    f: CPQRF
 
     @property
     def R(self):
@@ -98,11 +109,46 @@ class FactorJ2(NamedTuple):
         return self.f.diag
 
 
+def _gram_jtrx(f: CholQRF, rx: torch.Tensor) -> torch.Tensor:
+    """JQ1^T rx: kept by the factorization when the fused kernel produced
+    it, else one stream of the tall buffer."""
+    return f.jtrx if f.jtrx is not None else mtv(f.M, rx)
+
+
 def j2_transform_d(F_J2: FactorJ2, JQ1: torch.Tensor, p1n: torch.Tensor,
                    rx: torch.Tensor) -> torch.Tensor:
     """d = Q3^T (-J1 p1 - rx) (J1 p1 == JQ1 @ p1n since p1n is zero past
-    the leading slots)."""
-    return qt_apply(F_J2.f, -mv(JQ1, p1n) - rx)
+    the leading slots).  Dispatches on the factorization kind: the direct
+    CPQR, the thin-QR two-stage form, or CholeskyQR with its kept Gram."""
+    f = F_J2.f
+    if isinstance(f, CholQRF) and f.G is not None:
+        # Small-side algebra on the kept Gram (f.M is JQ1 on this path):
+        # with v = -(JQ1 p1n) - rx,
+        #   M^T v   = -(G p1n) - JQ1^T rx
+        #   ||v||^2 = p1n^T G p1n + 2 p1n^T (JQ1^T rx) + ||rx||^2
+        # so the (m,) vector v is never formed and the tall buffer is
+        # streamed at most once (not at all when the kernel emitted
+        # JQ1^T rx).
+        #
+        # Cancellation envelope: rebuilding M^T v and ||v||^2 from the
+        # Gram has absolute error ~eps ||JQ1||^2 ||p1n|| instead of the
+        # materialized-v path's ~eps ||JQ1|| ||v||.  When ||v|| <<
+        # ||JQ1 p1n|| (near-exact GN steps on zero-residual problems) the
+        # d-vector becomes noise-dominated earlier than on the dense
+        # path; the noise exit tests absorb the difference, the solve
+        # still ends at the same iterate to within the working
+        # precision.  The LEAEST rhs in second_mult_estimate rides the
+        # same Gram and has the same envelope.
+        jtrx = _gram_jtrx(f, rx)
+        Gp = mv(f.G, p1n)
+        y = -Gp - jtrx
+        v_sq = torch.clamp(dot(p1n, Gp) + 2.0 * dot(p1n, jtrx) + dot(rx, rx),
+                           min=0.0)
+        return qt_apply_cholqr_from_projection(f, y, v_sq)
+    v = -mv(JQ1, p1n) - rx
+    if isinstance(f, TSQRF):
+        return qt_apply_tsqr(f, v)
+    return qt_apply(f, v)
 
 
 class GNResult(NamedTuple):
@@ -112,7 +158,7 @@ class GNResult(NamedTuple):
     rankA: torch.Tensor
     rankJ2: torch.Tensor
     F_J2: FactorJ2
-    JQ1: torch.Tensor     # (m, n)
+    JQ1: torch.Tensor     # (m, n); a (0, n) placeholder when elided
     y: torch.Tensor       # (n,) pre-Q1 coefficients: p == Q1 @ y
 
 
@@ -207,19 +253,36 @@ def first_mult_estimate(F_A: FactorA, act: ActiveConstraint, t, dims: Dims,
 
 def second_mult_estimate(F_A: FactorA, JQ1: torch.Tensor, rx: torch.Tensor,
                          J: torch.Tensor, p_gn: torch.Tensor, t,
-                         act: ActiveConstraint, dims: Dims, scaling: bool
-                         ) -> torch.Tensor:
+                         act: ActiveConstraint, dims: Dims, scaling: bool,
+                         F_J2: FactorJ2 | None = None,
+                         y_gn: torch.Tensor | None = None,
+                         jac_base=None) -> torch.Tensor:
     """LEAEST: solve A^T lam = J1^T (rx + J p).
 
     The reference calls this with its *default* eps_rank = sqrt(eps),
     not the solver option; reproduced.  (Only consumed on the full-rank
-    path, where t == rankA <= ka.)"""
+    path, where t == rankA <= ka.)
+
+    ``F_J2``/``y_gn``: the GN products of the CholeskyQR tall path.  With
+    p == Q1 y and the Gram G = JQ1^T JQ1 held by the factorization,
+    J1^T (rx + J p) == (JQ1^T rx + G y)[:t]: the two (m, n) streams
+    (J @ p and JQ1^T v) become at most one (the JQ1^T rx projection,
+    shared with the d-vector's) plus an (n, n) product.  ``jac_base``:
+    factored mode, where ``J`` holds the (m, 1) row scale."""
     l, ka = dims.l, dims.ka
     eps_rank = torch.finfo(rx.dtype).eps ** 0.5
     prankA = pseudo_rank(F_A.diag, t, eps_rank)
     cols = torch.arange(dims.n, device=rx.device) < ex(t)
-    # J1^T v with J1 = first t cols of JQ1: mask the (n,) RESULT.
-    b_raw = mtv(JQ1, rx + mv(J, p_gn))
+    if F_J2 is not None and y_gn is not None and \
+            isinstance(F_J2.f, CholQRF) and F_J2.f.G is not None:
+        b_raw = _gram_jtrx(F_J2.f, rx) + mv(F_J2.f.G, y_gn)
+    else:
+        # J1^T v with J1 = first t cols of JQ1: mask the (n,) RESULT.
+        if jac_base is not None:  # factored J: J p = s * (base p)
+            Jp_gn = J[..., 0] * mv(jac_base, p_gn)
+        else:
+            Jp_gn = mv(J, p_gn)
+        b_raw = mtv(JQ1, rx + Jp_gn)
     b_full = torch.where(cols, b_raw, torch.zeros_like(b_raw))  # (n,)
     v = solve_upper(F_A.R[..., :ka, :ka], b_full[..., :ka], prankA)
     lam = _slots_to_constraints(v, F_A, l)
@@ -278,17 +341,72 @@ def sub_search_direction(act: ActiveConstraint, rx: torch.Tensor,
 def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
                         act: ActiveConstraint, F_A: FactorA,
                         F_L11: FactorL11, rankA, t, eps_rank, dims: Dims,
-                        rdims=None) -> GNResult:
-    """GNSRCH: J Q1, the pivoted QR of its live columns, SUBDIR."""
+                        rdims=None, tall_qr: str = "cholqr", jac_base=None,
+                        elide_jq1: bool = False) -> GNResult:
+    """GNSRCH: J Q1, the pivoted QR of its live columns, SUBDIR.
+
+    ``jac_base`` (factored-Jacobian mode, ``Functions.jac_rowscale`` /
+    ``jac_base``): ``J`` then holds the (m, 1) row scale and the semantic
+    Jacobian is diag(J[:, 0]) @ jac_base; the WY apply streams the base
+    with the scale fused in the kernel, so the dense J never exists.
+
+    ``elide_jq1`` (the driver sets it when the Jacobian is factored AND
+    second derivatives are off): additionally skip the (m, n) JQ1 write.
+    Every consumer then rides the kept Gram (the small-side algebra of
+    :func:`j2_transform_d` and :func:`second_mult_estimate`; the Newton
+    branch, the only true JQ1 reader, is excluded by the option).
+    ``GNResult.JQ1`` and ``CholQRF.M`` become (0, n) placeholders and the
+    d-vector embedding compacts to (n + 1,) — exact for every consumer,
+    which reads at most the leading n entries plus the complement norm.
+
+    ``tall_qr``: "cholqr" or "qr", the two-stage factorization a tall
+    panel takes (``Options.tall_qr``)."""
     n = dims.n
     rd = rdims_or(rdims, dims)
+    rows = jac_base.shape[-2] if jac_base is not None else J.shape[-2]
     live_cols = torch.arange(n, device=J.device) >= ex(rankA)
-    JQ1 = right_q_apply(F_A.f, J)
+    tall = rows >= 32 * n and rows >= 4096
+    # Fused single-pass path (one tall solve, cholqr, one WY panel): the
+    # apply, the CholeskyQR Gram and the JQ1^T rx projection are ONE pass
+    # of the kernel over J (or the base) instead of five (m, n)-class
+    # streams of separate matrix products.
+    gram = jtrx = None
+    panels = _panels(F_A.f)
+    if tall and tall_qr == "cholqr" and len(panels) == 1 and J.ndim == 2 \
+            and use_wy_hopper(rows, n, panels[0][0].shape[-1], J.dtype,
+                              J.device):
+        V0, T0 = panels[0]
+        if jac_base is not None and elide_jq1:
+            gram, jtrx = wy_gram_project_noapply(jac_base, V0, T0, rx,
+                                                 rowscale=J[:, 0])
+            JQ1 = torch.zeros((0, n), dtype=J.dtype, device=J.device)
+        elif jac_base is not None:
+            JQ1, gram, jtrx = wy_gram_project(jac_base, V0, T0, rx,
+                                              rowscale=J[:, 0])
+        else:
+            JQ1, gram, jtrx = wy_gram_project(J, V0, T0, rx)
+    elif jac_base is not None:
+        JQ1 = J * right_q_apply(F_A.f, jac_base)    # (m, 1) broadcasts
+    else:
+        JQ1 = right_q_apply(F_A.f, J)
     # Only n - rankA columns are live; skip the no-op steps.
-    J2buf = torch.where(live_cols[..., None, :], JQ1,
-                        torch.zeros((), dtype=JQ1.dtype, device=JQ1.device))
-    F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
-                                   device=J.device))
+    zero = torch.zeros((), dtype=JQ1.dtype, device=JQ1.device)
+    if tall and tall_qr == "cholqr":
+        # Gram + shifted Cholesky, implicit Q.  JQ1 is passed UNMASKED;
+        # dead columns are zeroed on the (n, n) Gram instead (the same
+        # bits, and no masked (m, n) copy).
+        F_J2 = FactorJ2(f=cholqr_cpqr(JQ1, nsteps=n - rankA,
+                                      col_live=live_cols, gram=gram,
+                                      jtrx=jtrx))
+    elif tall:
+        # Householder first stage: thin QR of the whole buffer + pivoted
+        # QR of its R.
+        J2buf = torch.where(live_cols[..., None, :], JQ1, zero)
+        F_J2 = FactorJ2(f=tsqr_cpqr(J2buf, nsteps=n - rankA))
+    else:
+        J2buf = torch.where(live_cols[..., None, :], JQ1, zero)
+        F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
+                                       device=J.device))
     # Semantic diag length (pseudo_rank's sqrt(len) tolerance factor).
     len_diag = torch.minimum(rd.n - rankA, torch.as_tensor(rd.m,
                                                            device=J.device))

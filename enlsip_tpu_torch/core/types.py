@@ -98,6 +98,12 @@ class Options:
     # genuinely negative multiplier, and shows stall evidence.  See
     # core/driver._ws_round1.
     rank_deficient_deletion: bool = True
+    # Factorization of a tall J2 panel (rows >= 32 n and rows >= 4096):
+    # "cholqr" (default) = Gram + shifted Cholesky with an implicit Q
+    # (ops/tsqr.CholQRF: matrix-product speed, accurate while cond(J2)
+    # stays below about eps^(-1/2)); "qr" = a Householder thin QR first
+    # stage (slower on a very tall buffer, unconditionally stable).
+    tall_qr: str = "cholqr"
 
 
 _TORCH_PRECISION = {"float32": "highest", "tensorfloat32": "high",

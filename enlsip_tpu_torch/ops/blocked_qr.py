@@ -19,7 +19,10 @@ rank-1 loop.  The Q applications below take either form.
 
 ``Q`` is never materialized.  Reflectors ``V, tau`` come back with
 panel-wise compact-WY ``T`` factors (``Q = prod_p (I - V_p T_p V_p^T)``),
-so ``Q^T x``, ``Q x`` and ``J @ Q`` are short chains of matrix products.
+so ``Q^T x``, ``Q x`` and ``J @ Q`` are short chains of matrix products;
+``J @ Q`` of a tall J with one panel is one pass of the fused WY kernel
+(``ops/wy_hopper.py``).  The two-stage factorizations of a tall buffer
+(CholeskyQR, thin QR + pivoted QR of R) are in ``ops/tsqr.py``.
 
 Zero (masked) columns have zero norms, pivot last and produce
 ``tau = 0`` no-op reflectors — callers mask invalid columns and get the
@@ -337,9 +340,22 @@ def q_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
     return _left_apply(f, x, False)
 
 
-def right_q_apply(f: CPQRF, J: torch.Tensor) -> torch.Tensor:
-    """J @ Q: right-multiply by P_i in forward order (plain matrix
-    products)."""
-    for Vi, Ti in _panels(f):
+def right_q_apply(f: CPQRF, J: torch.Tensor,
+                  allow_kernel: bool = True) -> torch.Tensor:
+    """J @ Q: right-multiply by P_i in forward order.
+
+    A tall 2-D ``J`` with a single WY panel goes to the fused kernel
+    (``ops/wy_hopper.wy_right_apply``, gate ``use_wy_hopper``), which
+    reads J once and keeps ``J V`` on chip; everything else, and every
+    call with ``allow_kernel=False``, takes the plain chain of matrix
+    products."""
+    panels = _panels(f)
+    if allow_kernel and len(panels) == 1 and J.ndim == 2 and f.V.ndim == 2:
+        from .wy_hopper import use_wy_hopper, wy_right_apply
+        V0, T0 = panels[0]
+        if use_wy_hopper(J.shape[0], J.shape[1], V0.shape[1], J.dtype,
+                         J.device):
+            return wy_right_apply(J, V0, T0)
+    for Vi, Ti in panels:
         J = J - ((J @ Vi) @ Ti) @ Vi.transpose(-1, -2)
     return J

@@ -1,0 +1,256 @@
+"""Two-stage column-pivoted QR of a tall (m, n) buffer.
+
+Counterpart of ``enlsip_tpu/ops/tsqr.py``.  The direct pivoted QR
+(``ops/blocked_qr.py``) takes one sequential step per live column, each
+streaming the whole (m, n) buffer; for m >> n two stages do the same
+job with one or two passes over the tall data:
+
+* :func:`cholqr_cpqr` (the default, ``Options.tall_qr="cholqr"``): the
+  Gram matrix G = M^T M, its shifted Cholesky factor R1, and the pivoted
+  QR of the (n, n) R1.  Q = M R1^{-1} stays implicit: no (m, n) Q buffer
+  exists, and Q^T v costs one M^T v and an (n, n) triangular solve;
+* :func:`tsqr_cpqr` (``tall_qr="qr"``): one unpivoted thin QR of the
+  whole buffer and the pivoted QR of its (n, n) R.
+
+Both preserve the column norms of M in their first-stage factor, so the
+second stage pivots and ranks exactly like the direct factorization and
+R, perm and diag have the direct factorization's shapes and meaning.
+
+The row-sharded form of the reference (``axis`` = a mesh axis: local
+factors per shard, one gather) is not part of this module yet;
+:func:`tsqr_cpqr` raises ``NotImplementedError`` when an axis is passed.
+
+Every function takes leading lane axes on its tensors like the rest of
+the package (``torch.linalg.cholesky_ex``, ``solve_triangular`` and
+``matmul`` batch natively).
+
+Numerical envelope of CholeskyQR: cond(G) = cond(M)^2, so the implicit Q
+loses orthogonality for cond(M) beyond about eps^(-1/2).  For the
+Gauss-Newton subproblem this perturbs the direction, not correctness
+(descent is re-checked by the merit machinery);
+``Options(tall_qr="qr")`` restores the Householder path.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .._lanes import dot, ex, mtv
+from .blocked_qr import CPQRF, cpqr_blocked, qt_apply
+
+
+class TSQRF(NamedTuple):
+    """Thin QR + pivoted QR of its R: ``qloc`` (m, n) the thin Q, ``f2``
+    the CPQR of the (n, n) R.  ``axis`` is kept for the reference's
+    row-sharded form and is always ``None`` here.  Exposes R / perm /
+    diag with the shapes the direct CPQRF has for m >= n."""
+
+    qloc: torch.Tensor
+    f2: CPQRF
+    axis: Optional[str] = None
+
+    @property
+    def R(self):
+        return self.f2.R[..., :self.qloc.shape[-1], :]
+
+    @property
+    def perm(self):
+        return self.f2.perm
+
+    @property
+    def diag(self):
+        return self.f2.diag[..., :self.qloc.shape[-1]]
+
+
+def tsqr_cpqr(M: torch.Tensor, nsteps, axis: Optional[str] = None) -> TSQRF:
+    """Column-pivoted QR of a tall ``M`` (m, n), m >= n: one thin
+    ``torch.linalg.qr`` of the whole matrix, then the pivoted QR of its
+    (n, n) R, with ``nsteps`` bounding the pivot steps (live columns).
+    Column norms, hence pivoting and rank decisions, are those of M."""
+    if axis is not None:
+        raise NotImplementedError(
+            "tsqr_cpqr: the row-sharded form (axis) is not part of this "
+            "package yet; pass axis=None")
+    q, r = torch.linalg.qr(M, mode="reduced")
+    return TSQRF(qloc=q, f2=cpqr_blocked(r, nsteps=nsteps, device=M.device))
+
+
+class CholQRF(NamedTuple):
+    """Shifted CholeskyQR + pivoted QR of the (n, n) triangular factor.
+
+    M: the factored (m, n) buffer (not copied), or a (0, n) placeholder
+      when the caller never materialized it;
+    R1: (n, n) upper Cholesky factor of the masked, shifted Gram, dead
+      columns zeroed;
+    f2: CPQR of R1 (single pass) or of R2 @ R1 (refined);
+    R2: the CholeskyQR2 refinement factor (float64 only, else None), kept
+      SEPARATE from R1 so the Q^T application composes two backward-stable
+      solves instead of solving with the rounded product;
+    G: the UNMASKED Gram M^T M, kept so consumers can replace (m,)-length
+      streams by (n, n) products (M^T (M y) == G y);
+    jtrx: optional precomputed M^T rx (the fused WY kernel emits it with
+      the Gram)."""
+
+    M: torch.Tensor
+    R1: torch.Tensor
+    f2: CPQRF
+    R2: Optional[torch.Tensor] = None
+    G: Optional[torch.Tensor] = None
+    jtrx: Optional[torch.Tensor] = None
+
+    @property
+    def R(self):
+        return self.f2.R[..., :self.M.shape[-1], :]
+
+    @property
+    def perm(self):
+        return self.f2.perm
+
+    @property
+    def diag(self):
+        return self.f2.diag[..., :self.M.shape[-1]]
+
+
+def _cholesky_upper(G: torch.Tensor) -> torch.Tensor:
+    """Upper Cholesky factor of ``G``, NaN where the factorization broke
+    down (``torch.linalg.cholesky_ex`` reports failure through ``info``
+    instead; the callers select on finiteness, with no host branch)."""
+    L, info = torch.linalg.cholesky_ex(G)
+    nan = torch.full((), float("nan"), dtype=G.dtype, device=G.device)
+    return torch.where(ex(info != 0, 2), nan, L).transpose(-1, -2)
+
+
+def _solve_rt(R: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``R^T X = B`` for upper-triangular ``R``."""
+    return torch.linalg.solve_triangular(R.transpose(-1, -2), B, upper=False)
+
+
+def cholqr_cpqr(M: torch.Tensor, nsteps, col_live=None, gram=None,
+                jtrx=None) -> CholQRF:
+    """Column-pivoted QR of a tall (m, n) buffer via shifted CholeskyQR
+    (implicit Q) + pivoted QR of R1.
+
+    ``gram``: M^T M where the caller already holds it (the fused WY
+    kernel emits it with the apply); ``M`` is then not read and may be a
+    (0, n) placeholder.  ``col_live`` (n,) bool: columns outside it are
+    dead; masking happens on the (n, n) Gram, so ``M`` is passed
+    unmasked.  ``jtrx``: M^T rx to keep beside the Gram.
+
+    At float64 a CholeskyQR2-style refinement runs on the Gram alone:
+    the implicit Q becomes M R1^{-1} R2^{-1} with R2 the Cholesky factor
+    of R1^{-T} G R1^{-1} — two (n, n) triangular solves and one (n, n)
+    Cholesky, no second pass over the tall data.  At float32 it is
+    skipped (it gains little below cond 1e3 and can destabilize beyond
+    1e4, a range the float32 pseudo-rank truncation cuts off anyway).
+    The split is static on the dtype."""
+    n = M.shape[-1]
+    dtype, dev = M.dtype, M.device
+    G_raw = (M.transpose(-1, -2) @ M) if gram is None else gram   # (n, n)
+    G = G_raw
+    zero = torch.zeros((), dtype=dtype, device=dev)
+    if col_live is not None:
+        G = torch.where(col_live[..., None, :] & col_live[..., :, None], G,
+                        zero)
+    dG = torch.diagonal(G, dim1=-2, dim2=-1)
+    live = dG > 0.0
+    eps = torch.finfo(dtype).eps
+    eye = torch.eye(n, dtype=dtype, device=dev)
+    shift = eps * torch.amax(dG, dim=-1)
+    R1 = _cholesky_upper(G + ex(shift, 2) * eye)
+    # Exact-zero (masked) columns must stay exactly zero so stage-2
+    # pivoting/rank logic never sees the shift; a failed factorization
+    # (an all-dead Gram) collapses to zero the same way.
+    live_c = live[..., None, :]
+    live2 = live_c & live[..., :, None]
+    R1 = torch.where(live_c & torch.isfinite(R1), R1, zero)
+    if eps > torch.finfo(torch.float64).eps:
+        # single pass
+        return CholQRF(M=M, R1=R1,
+                       f2=cpqr_blocked(R1, nsteps=nsteps, device=dev),
+                       G=G_raw, jtrx=jtrx)
+    # --- float64 refinement pass (implicit CholeskyQR2) -----------------
+    # G_Q = R1^{-T} G R1^{-1} is the Gram of the implicit Q; its Cholesky
+    # factor R2 measures (and removes) the orthogonality loss.  Dead
+    # rows/cols are patched to the identity for the solves and re-zeroed.
+    dead_eye = torch.where(live, zero, 1.0 + zero)[..., None, :] * eye
+    R1p = R1 + dead_eye
+    Gl = torch.where(live2, G, zero) + dead_eye
+    X = _solve_rt(R1p, Gl)                                      # R1^{-T} G
+    GQ = _solve_rt(R1p, X.transpose(-1, -2)).transpose(-1, -2)  # X R1^{-1}
+    GQ = 0.5 * (GQ + GQ.transpose(-1, -2))
+    shift2 = eps * torch.amax(torch.diagonal(GQ, dim1=-2, dim2=-1), dim=-1)
+    R2 = _cholesky_upper(GQ + ex(shift2, 2) * eye)
+    R2 = torch.where(live2 & torch.isfinite(R2), R2, zero)
+    # A failed refinement Cholesky (any live column it killed) falls back
+    # to the single-pass factor: a select, not a branch.
+    ref_ok = torch.all(torch.diagonal(R2, dim1=-2, dim2=-1).gt(0.0) | ~live,
+                       dim=-1)
+    live_eye = torch.where(live, 1.0 + zero, zero)[..., None, :] * eye
+    R2 = torch.where(ex(ref_ok, 2), R2, live_eye)
+    # Stage-2 pivoting/ranks read the refined product; the implicit-Q
+    # application composes the two factors (see CholQRF.R2).
+    Rr = torch.where(live_c, R2 @ R1, zero)
+    return CholQRF(M=M, R1=R1, f2=cpqr_blocked(Rr, nsteps=nsteps, device=dev),
+                   R2=R2, G=G_raw, jtrx=jtrx)
+
+
+def qt_apply_cholqr_from_projection(f: CholQRF, y: torch.Tensor,
+                                    v_sq: torch.Tensor) -> torch.Tensor:
+    """:func:`qt_apply_cholqr` given the projection y = M^T v and ||v||^2
+    already computed, for callers who can form both from small-side
+    quantities and never stream the tall buffer."""
+    return _qt_cholqr(f, y, v_sq)
+
+
+def qt_apply_cholqr(f: CholQRF, v: torch.Tensor) -> torch.Tensor:
+    """Q^T v with the (m,) embedding contract of :func:`qt_apply_tsqr`:
+    the leading n entries are the stage-2 coefficients, entry [n] carries
+    the orthogonal-complement norm (sum(out**2) == ||v||**2)."""
+    return _qt_cholqr(f, mtv(f.M, v), dot(v, v))
+
+
+def _qt_cholqr(f: CholQRF, y: torch.Tensor, v_sq: torch.Tensor
+               ) -> torch.Tensor:
+    m, n = f.M.shape[-2:]
+    # Elided mode: M is a (0, n) placeholder.  Every consumer of the
+    # returned embedding reads at most the leading n entries plus the
+    # complement norm at [n], so a compact (n + 1,) buffer is exact.
+    if m == 0:
+        m = n + 1
+    # R1^T w = y on the live columns; dead rows/cols of R1 are zero, so
+    # solve on a unit-diagonal-patched copy and re-zero.
+    live = torch.diagonal(f.R1, dim1=-2, dim2=-1).abs() > 0.0
+    zero = torch.zeros((), dtype=y.dtype, device=y.device)
+    eye = torch.eye(n, dtype=f.R1.dtype, device=f.R1.device)
+    dead_eye = torch.where(live, zero, 1.0 + zero)[..., None, :] * eye
+    w = _solve_rt(f.R1 + dead_eye,
+                  torch.where(live, y, zero)[..., None])[..., 0]
+    w = torch.where(live, w, zero)
+    if f.R2 is not None:
+        # CholeskyQR2 composition: Q = M R1^{-1} R2^{-1}.
+        w = _solve_rt(f.R2 + dead_eye, w[..., None])[..., 0]
+        w = torch.where(live, w, zero)
+    u = qt_apply(f.f2, w)                           # (n,)
+    rest2 = torch.clamp(v_sq - dot(w, w), min=0.0)
+    out = torch.zeros((*y.shape[:-1], m), dtype=y.dtype, device=y.device)
+    out[..., :n] = u[..., :n]
+    out[..., n] = torch.sqrt(rest2)
+    return out
+
+
+def qt_apply_tsqr(f: TSQRF, v: torch.Tensor) -> torch.Tensor:
+    """Q^T v embedded in an (m,) buffer whose leading n entries are the
+    coefficients in the two-stage basis (exact for every consumer: the
+    triangular solves and prefix norms all read < n leading entries) and
+    whose entry [n] carries the orthogonal-complement norm, so
+    ``sum(out**2) == ||v||**2`` like the direct transform."""
+    m, n = f.qloc.shape[-2:]
+    w = mtv(f.qloc, v)                                 # (n,)
+    u = qt_apply(f.f2, w)
+    rest2 = torch.clamp(dot(v, v) - dot(w, w), min=0.0)
+    out = torch.zeros((*v.shape[:-1], m), dtype=v.dtype, device=v.device)
+    out[..., :n] = u
+    out[..., n] = torch.sqrt(rest2)
+    return out

@@ -16,9 +16,9 @@ launch each of the batched CPQR kernel (``ops/cpqr_batched_hopper.py``).
 Differences from the JAX package, all deliberate: the loop is a host
 loop that reads "is any lane still running" back once per
 ``check_every`` trips and the clock every trip, so there is no adaptive
-chunk schedule (that answered XLA dispatch cost); and the
-factored-Jacobian hook that ``init_batch`` guards against there does not
-exist in this package yet.
+chunk schedule (that answered XLA dispatch cost).  As there, the
+factored-Jacobian hook (``Functions.jac_rowscale`` / ``jac_base``) is a
+single-solve feature and ``init_batch`` rejects it.
 """
 
 from __future__ import annotations
@@ -74,6 +74,12 @@ def init_batch(fns: Functions, x0_batch, dims: Dims, opts: Options, dtype,
     ``fns`` closures take ``(x, data_lane)`` and each lane sees its own
     slice.  ``rdims``: optional per-lane RDims (fields shaped (B,)) for
     heterogeneous fused batches."""
+    if fns.jac_base is not None or fns.jac_rowscale is not None:
+        raise ValueError(
+            "the factored-Jacobian hook (Functions.jac_rowscale/jac_base) "
+            "is a single-solve feature (init_carry/iterate_body/solve); the "
+            "batched bodies would silently treat the (m, 1) scale as a "
+            "dense Jacobian")
     dev = resolve_device(device)
     data = _to_device(data, dev, dtype) if has_data(data) else None
     x0 = torch.as_tensor(x0_batch).to(device=dev, dtype=dtype)

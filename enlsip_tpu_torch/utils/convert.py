@@ -4,7 +4,10 @@ The solver has no learned weights: what has to cross between the two
 packages is its *state* (factorizations, working-set data, the loop
 carry), so that both sides can compute from the same inputs.  The
 reference side hands a structure over as a nested dict of numpy arrays
-keyed by field name, with the structure's class name under ``"_type"``;
+keyed by field name, with the structure's class name under ``"_type"``
+(a field that is ``None`` on the reference side, such as the optional
+members of a ``CholQRF`` or the ``axis`` of a ``TSQRF``, stays ``None``;
+an elided ``JQ1`` is its (0, n) placeholder array);
 :func:`from_reference` rebuilds the port's structure on a device and
 :func:`to_numpy` goes back.  Nothing here imports JAX.
 """
@@ -22,10 +25,11 @@ from ..core.subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
 from ..core.types import Carry, Counters, PrevIter, Tols, WorkingView
 from ..ops.blocked_qr import CPQRF
 from ..ops.qr import CPQR
+from ..ops.tsqr import TSQRF, CholQRF
 from ..parallel.batch import BatchResult
 
 STRUCTURES = {cls.__name__: cls for cls in (
-    CPQR, CPQRF, ActiveConstraint, FactorA, FactorL11, FactorJ2, GNResult,
+    CPQR, CPQRF, CholQRF, TSQRF, ActiveConstraint, FactorA, FactorL11, FactorJ2, GNResult,
     PrevIter, Carry, Tols, Counters, WorkingView, WorkingSetRound, WSRound1,
     AnalysResult, SteplengthResult, BatchResult)}
 

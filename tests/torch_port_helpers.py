@@ -19,9 +19,20 @@ def ref_tree(obj):
         out = {"_type": type(obj).__name__}
         out.update({k: ref_tree(getattr(obj, k)) for k in obj._fields})
         return out
+    if type(obj).__name__ in _CLASS_FIELDS:     # pytree classes, not tuples
+        out = {"_type": type(obj).__name__}
+        out.update({k: ref_tree(getattr(obj, k))
+                    for k in _CLASS_FIELDS[type(obj).__name__]})
+        return out
     if isinstance(obj, (list, tuple)):
         return type(obj)(ref_tree(v) for v in obj)
     return np.asarray(obj)
+
+
+# The two-stage tall factorizations of the JAX package are registered
+# pytree classes; their members by name.
+_CLASS_FIELDS = {"CholQRF": ("M", "R1", "f2", "R2", "G", "jtrx"),
+                 "TSQRF": ("qloc", "f2", "axis")}
 
 
 def to_port(obj):
