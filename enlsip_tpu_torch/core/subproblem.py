@@ -369,7 +369,10 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
     # Fused single-pass path (one tall solve, cholqr, one WY panel): the
     # apply, the CholeskyQR Gram and the JQ1^T rx projection are ONE pass
     # of the kernel over J (or the base) instead of five (m, n)-class
-    # streams of separate matrix products.
+    # streams of separate matrix products.  The gate selects the fused
+    # FORM: the wrappers launch the kernel on a CUDA tensor and run their
+    # plain versions on a CPU tensor; outside the gate the Gram comes from
+    # cholqr_cpqr's own products on either device.
     gram = jtrx = None
     panels = _panels(F_A.f)
     if tall and tall_qr == "cholqr" and len(panels) == 1 and J.ndim == 2 \

@@ -16,10 +16,13 @@
 //
 // Bound.  At the main shape (5,000,000 x 100, k = 50, float32) the
 // function moves 2 GB in (and 2 GB out where JQ1 is written) and does
-// 4 m n k + 2 m n^2 + 2 m n = 2e11 operations: about 1.2 ms of memory
-// traffic against 3 ms of float32 FMA work, so it is bound by
-// operations, and the design keeps every product on chip and reads J
-// exactly once.
+// 4 m n k + m n (n + 1) + 2 m n = 1.5e11 operations (G is symmetric, so
+// the function needs only one triangle of it): about 1.2 ms of memory
+// traffic against 2.3 ms of float32 FMA work at the card's published
+// rates, so it is bound by operations, and the design keeps every
+// product on chip and reads J exactly once.  The kernel itself
+// accumulates the full square of G, twice the Gram work the function
+// needs.
 //
 // Design.  A block owns 64 rows at a time: it stages the J tile in shared
 // memory beside V and W (loaded once per block), forms X with 4 x 4

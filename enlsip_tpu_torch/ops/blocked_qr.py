@@ -340,17 +340,17 @@ def q_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:
     return _left_apply(f, x, False)
 
 
-def right_q_apply(f: CPQRF, J: torch.Tensor,
-                  allow_kernel: bool = True) -> torch.Tensor:
+def right_q_apply(f: CPQRF, J: torch.Tensor) -> torch.Tensor:
     """J @ Q: right-multiply by P_i in forward order.
 
-    A tall 2-D ``J`` with a single WY panel goes to the fused kernel
-    (``ops/wy_hopper.wy_right_apply``, gate ``use_wy_hopper``), which
-    reads J once and keeps ``J V`` on chip; everything else, and every
-    call with ``allow_kernel=False``, takes the plain chain of matrix
-    products."""
+    A tall 2-D ``J`` with a single WY panel inside the gate
+    ``use_wy_hopper`` takes the fused form ``ops/wy_hopper.wy_right_apply``
+    (``J - (J V) W`` with ``W = T V^T``): on a CUDA tensor that is the
+    kernel, which reads J once and keeps ``J V`` on chip, and on a CPU
+    tensor the same arithmetic as plain matrix products.  Everything else
+    takes the chain of matrix products below."""
     panels = _panels(f)
-    if allow_kernel and len(panels) == 1 and J.ndim == 2 and f.V.ndim == 2:
+    if len(panels) == 1 and J.ndim == 2 and f.V.ndim == 2:
         from .wy_hopper import use_wy_hopper, wy_right_apply
         V0, T0 = panels[0]
         if use_wy_hopper(J.shape[0], J.shape[1], V0.shape[1], J.dtype,

@@ -69,8 +69,13 @@ def _shared_bytes(cols: int, k: int, dtype) -> int:
 def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
     """Dispatch gate, a pure function of shape, dtype and device: tall
     (``rows >= 32 cols`` and ``rows >= 4096``) float32/float64 applies
-    whose panel fits the kernel's tiling, on a CUDA device or the CPU (where
-    the wrappers run the plain versions)."""
+    whose panel fits the kernel's tiling.
+
+    True means "take the fused form", not "a kernel runs": the wrappers
+    launch the kernel on a CUDA tensor and compute the same function with
+    their plain versions on a CPU tensor.  The kernel's limits (``cols <=
+    128``, the shared-memory budget) hold on the CPU too, so both devices
+    split the fused form from the unfused chain at the same shapes."""
     dev = torch.device(device)
     return (dev.type in ("cuda", "cpu") and dtype in _CTYPES
             and rows >= 32 * cols and rows >= 4096

@@ -128,14 +128,12 @@ def test_plain_versions_match_the_product_chain(rows, n, k, scaled):
 def test_right_q_apply_dispatches_tall_single_panel_to_the_wrapper():
     """``blocked_qr.right_q_apply``: a tall 2-D J with one panel goes
     through ``wy_right_apply`` (W-form), anything else through the
-    chain; both agree to rounding and ``allow_kernel=False`` is the
-    chain bit for bit."""
+    chain; both agree to rounding."""
     rng = np.random.default_rng(3)
     f = tb.cpqr_blocked(tt(rng.normal(size=(12, 8))), device="cpu")
     J = tt(rng.normal(size=(4096, 12)))
     V0, T0 = tb._panels(f)[0]
     chain = J - ((J @ V0) @ T0) @ V0.t()
-    assert torch.equal(tb.right_q_apply(f, J, allow_kernel=False), chain)
     assert torch.equal(tb.right_q_apply(f, J), wy.wy_right_apply(J, V0, T0))
     np.testing.assert_allclose(tb.right_q_apply(f, J).numpy(), chain.numpy(),
                                **TOL)
