@@ -30,6 +30,14 @@ derivatives; c: dense Jacobian; d: dense, ``tall_qr="qr"``) with seconds
 per solve, iterations, exit code, active constraints, launches of each
 kernel, read-backs per iteration and peak device memory.
 
+Lines of the B1 phase: every ``kernel_cases`` row names its ``route``
+(each case runs through the resident and the stream route of
+``ops/cpqr_hopper.py``; one oversized case goes through the dispatch to
+the stream route); ``grid_barrier_us`` is the measured cost of one
+grid-wide barrier (the resident kernel's own and cooperative-groups
+``grid.sync()``) at the block counts tried; ``build`` carries what ptxas
+reported for every kernel (registers, spill).
+
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
 ``torch.profiler``, with the device's busy share and the kernels that
@@ -65,7 +73,10 @@ from enlsip_tpu_torch.models.model import (_model_functions,
 from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
     cpqr_batched_packed, cpqr_batched_packed_plain, launch_soa,
     unpack_batched)
-from enlsip_tpu_torch.ops.cpqr_hopper import cpqr_hopper
+from enlsip_tpu_torch.ops import cpqr_hopper as cpqr_mod
+from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
+                                              cpqr_hopper_stream,
+                                              fits_resident)
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
 from enlsip_tpu_torch.parallel import run_batch, solve_batched
@@ -192,13 +203,20 @@ KERNEL_CASES = [
 ]
 
 
-def check_kernel_case(name, kind, rows, cols, nsteps, dtype, main_path):
-    live = nsteps
-    M = _case_matrix(kind, rows, cols, live, dtype, seed=rows + cols + nsteps)
-    Bt, tau, perm = cpqr_hopper(M, nsteps)
-    torch.cuda.synchronize()
-    Pt, ptau, pperm = cpqr_packed_plain(M, nsteps)
-    torch.cuda.synchronize()
+B1_ROUTES = {"resident": cpqr_hopper_resident, "stream": cpqr_hopper_stream}
+# Too large for the card's shared memory in either type (20 columns of
+# 3000 rows a block on 132 SMs: 240 KB at float32): the dispatch must take
+# the stream route.  Forty live columns, so that forty steps factor it whole.
+OVERSIZED_CASE = ("oversized, via dispatch", "leading_live", 3000, 2600, 40)
+
+
+def _hold_against_plain(name, kind, M, nsteps, got, plain):
+    """Compare one packed factorization with the plain version's; returns
+    the error figures and raises on a miss."""
+    rows, cols = M.shape
+    dtype = M.dtype
+    Bt, tau, perm = got
+    Pt, ptau, pperm = plain
     perm_equal = bool(torch.equal(perm, pperm))
     scale = float(Pt.abs().max())
     packed_err = float((Bt - Pt).abs().max()) / scale if perm_equal else None
@@ -226,18 +244,124 @@ def check_kernel_case(name, kind, rows, cols, nsteps, dtype, main_path):
             assert perm_equal, f"{name} f32: perm differs on graded matrix"
     assert diag_sorted, f"{name}: |diag R| not non-increasing"
     assert bool(torch.isfinite(Bt).all())
+    assert perm.dtype == torch.int64 and sorted(perm.tolist()) == list(range(cols))
+    return {"perm_equal": perm_equal, "max_abs_err": packed_err,
+            "tau_err": tau_err, "recon_rel_err": recon}
 
+
+def check_kernel_case(name, kind, rows, cols, nsteps, dtype, main_path):
+    """One case through BOTH hand-written routes (a row each), each held
+    against the plain version, with equal bits of two launches; the
+    dispatch must take the resident route (every case fits the card)."""
+    M = _case_matrix(kind, rows, cols, nsteps, dtype, seed=rows + cols + nsteps)
+    before = M.clone()
+    plain = cpqr_packed_plain(M, nsteps)
+    torch.cuda.synchronize()
     big = rows * cols >= 500_000
-    ms = cuda_ms(lambda: cpqr_hopper(M, nsteps), reps=5 if big else 10)
     plain_ms = cuda_ms(lambda: cpqr_packed_plain(M, nsteps),
                        reps=2 if big and nsteps > 100 else 3)
     bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
-    return {"case": name, "shape": [rows, cols], "nsteps": nsteps,
-            "dtype": str(dtype).replace("torch.", ""), "main_path": main_path,
-            "perm_equal": perm_equal, "max_abs_err": packed_err,
-            "tau_err": tau_err, "recon_rel_err": recon, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+    cpqr_hopper(M, nsteps)
+    assert cpqr_hopper.last_route == "resident", (name, cpqr_hopper.last_route)
+    out = []
+    for route, fn in B1_ROUTES.items():
+        got, again = fn(M, nsteps), fn(M, nsteps)
+        torch.cuda.synchronize()
+        assert cpqr_hopper.last_route == route
+        assert torch.equal(M, before), f"{name} {route}: the input was modified"
+        bits_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        assert bits_equal, f"{name} {route}: two launches differ"
+        errs = _hold_against_plain(f"{name} [{route}]", kind, M, nsteps, got,
+                                   plain)
+        # the 998-step resident case runs 50 times in a row: a lost wake-up
+        # of its grid barrier would hang here, in the open
+        reps = 50 if route == "resident" and main_path else 5 if big else 10
+        ms = cuda_ms(lambda: fn(M, nsteps), reps=reps)
+        out.append({"case": name, "route": route, "shape": [rows, cols],
+                    "nsteps": nsteps, "dtype": str(dtype).replace("torch.", ""),
+                    "main_path": main_path, "bits_equal": bits_equal, **errs,
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "streamed_bytes_over_hbm_rate_ms": stream_ms,
+                    "library_ms": None})
+    return out
+
+
+def check_oversized_case(dtype):
+    """A matrix the gate turns away, through ``cpqr_hopper``: the dispatch
+    takes the stream route, and the resident entry point raises."""
+    name, kind, rows, cols, nsteps = OVERSIZED_CASE
+    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    assert not fits_resident(rows, cols, dtype, sms, shared)
+    M = _case_matrix(kind, rows, cols, nsteps, dtype, seed=rows + cols)
+    got = cpqr_hopper(M, nsteps)
+    torch.cuda.synchronize()
+    assert cpqr_hopper.last_route == "stream", cpqr_hopper.last_route
+    try:
+        cpqr_hopper_resident(M, nsteps)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the resident route took a matrix that does not fit")
+    plain = cpqr_packed_plain(M, nsteps)
+    errs = _hold_against_plain(name, kind, M, nsteps, got, plain)
+    bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
+    return {"case": name, "route": "stream", "shape": [rows, cols],
+            "nsteps": nsteps, "dtype": str(dtype).replace("torch.", ""),
+            "main_path": False, **errs,
+            "ms": cuda_ms(lambda: cpqr_hopper(M, nsteps), reps=5),
+            "plain_ms": cuda_ms(lambda: cpqr_packed_plain(M, nsteps), reps=2),
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "streamed_bytes_over_hbm_rate_ms": stream_ms, "library_ms": None}
+
+
+def check_shared_memory_mirrors():
+    """The wrappers size shared memory in Python (their gates are pure
+    functions); the sources size it again for the launch.  Both must say
+    the same."""
+    clib, wlib = cpqr_mod._library(), wy._library()
+    for rows, cols, blocks, itemsize in [(1000, 998, 132, 4), (1998, 1000, 132, 8),
+                                         (257, 193, 64, 8), (300, 7, 7, 4)]:
+        assert clib.cpqr_resident_shared_bytes(rows, cols, blocks, itemsize) == \
+            cpqr_mod._resident_shared_bytes(rows, cols, blocks, itemsize)
+    for n, k, dtype in [(100, 50, torch.float32), (100, 50, torch.float64),
+                        (128, 128, torch.float32), (7, 3, torch.float64),
+                        (32, 1, torch.float32), (16, 16, torch.float64)]:
+        itemsize = torch.empty(0, dtype=dtype).element_size()
+        for rb, stages in wy.TILINGS:
+            assert wlib.wy_gram_shared_bytes(n, k, itemsize, rb, stages) == \
+                wy._shared_bytes(n, k, dtype, rb, stages), (n, k, dtype, rb)
+
+
+def resident_by_blocks():
+    """The resident kernel on 132, 64 and 32 blocks at 1000 x 998 float32
+    (998 steps): its time, and equal bits whatever the block count."""
+    name, kind, rows, cols, nsteps, _ = KERNEL_CASES[0]
+    M = _case_matrix(kind, rows, cols, nsteps, torch.float32,
+                     seed=rows + cols + nsteps)
+    sms = cpqr_mod._device_limits(DEV)[0]
+    ref = cpqr_mod._resident(M, nsteps)
+    out = {}
+    for blocks in sorted({sms, 64, 32}, reverse=True):
+        got = cpqr_mod._resident(M, nsteps, blocks)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
+            f"resident kernel: {blocks} blocks give other bits than {sms}"
+        out[str(blocks)] = cuda_ms(lambda: cpqr_mod._resident(M, nsteps, blocks),
+                                   reps=10)
+    return out
+
+
+def grid_barrier_us():
+    """Measured cost of one grid-wide barrier at 512 threads a block: the
+    resident kernel's own arrive / wait pair on an L2 counter, and
+    cooperative-groups ``grid.sync()``, by block count."""
+    sms = cpqr_mod._device_limits(DEV)[0]
+    counts = sorted({sms, 64, 32}, reverse=True)
+    return {"own_counter": {str(b): cpqr_mod._barrier_probe_us(0, b)
+                            for b in counts},
+            "cooperative_groups": {str(b): cpqr_mod._barrier_probe_us(1, b)
+                                   for b in counts}}
 
 
 def l2_copy_rate():
@@ -253,8 +377,9 @@ def check_kernels():
     cases = []
     for dtype in (torch.float64, torch.float32):
         for (name, kind, rows, cols, nsteps, main) in KERNEL_CASES:
-            cases.append(check_kernel_case(name, kind, rows, cols, nsteps,
-                                           dtype, main))
+            cases += check_kernel_case(name, kind, rows, cols, nsteps, dtype,
+                                       main)
+        cases.append(check_oversized_case(dtype))
     return cases
 
 
@@ -480,6 +605,9 @@ def check_wy_case(name, m, n, k, main_path, dtype):
         errs = {part: _rel(gt, w, norm=part != "JQ1")
                 for part, gt, w in zip(parts, got, want)}
         assert bits_equal, f"{kernel} {name}: two launches differ"
+        if "G" in parts:
+            G = got[parts.index("G")]
+            assert torch.equal(G, G.T), f"{kernel} {name}: G is not symmetric"
         for part, e in errs.items():
             assert e <= WY_TOL[dtype][part], (kernel, name, str(dtype), part, e)
         assert all(bool(torch.isfinite(gt).all()) for gt in got)
@@ -490,6 +618,7 @@ def check_wy_case(name, m, n, k, main_path, dtype):
         out.append({"kernel": kernel, "case": name, "shape": [m, n, k],
                     "dtype": str(dtype).replace("torch.", ""),
                     "main_path": main_path, "bits_equal": bits_equal,
+                    "G_symmetric_to_the_bit": True if "G" in parts else None,
                     "rel_err": errs, "max_abs_err": max(errs.values()),
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
@@ -629,6 +758,7 @@ def solve_cr1000(dtype):
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = cpqr_hopper.launches
+    route = cpqr_hopper.last_route
     readbacks = _device.readback_count()
     iters = len(model.model_info.iterations_detail)
     name = str(dtype).replace("torch.", "")
@@ -646,7 +776,7 @@ def solve_cr1000(dtype):
     return {"dtype": name, "status": et.status(model), "objective": f,
             "objective_rel_err_vs_reference": rel, "max_abs_c": cmax,
             "c_tol": c_tol, "iterations": iters, "seconds_per_solve": seconds,
-            "cpqr_hopper_launches": launches,
+            "cpqr_hopper_launches": launches, "cpqr_route": route,
             "launches_per_iteration": launches / iters,
             "host_readbacks": readbacks,
             "host_readbacks_per_iteration": readbacks / iters}
@@ -878,10 +1008,15 @@ def main() -> None:
 
     t0 = time.time()
     _build.build_all()
+    sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     emit({"build": {"seconds": time.time() - t0,
-                    "sources": sorted(p.name for p in _build.CSRC.glob("*.cu"))}})
+                    "sources": [f"{n}.cu" for n in sources],
+                    "ptxas": {n: _build.resource_usage(n) for n in sources}}})
 
+    check_shared_memory_mirrors()
+    emit({"grid_barrier_us": grid_barrier_us()})
     cases = check_kernels()
+    emit({"resident_ms_by_blocks_1000x998_f32": resident_by_blocks()})
     bcases = check_batched_kernels()
     wcases = check_wy_kernels()
     emit({"wy_kernel_cases": wcases})
@@ -920,25 +1055,30 @@ def main() -> None:
                         + ode_stats["cpqr_batched_launches"])
     assert launches_batched > 0, \
         "the batched paths never launched cpqr_batched_packed"
+    route_main = solves[0]["cpqr_route"]
+    assert route_main == "resident", route_main
     head = next(c for c in cases
                 if c["main_path"] and c["dtype"] == "float32"
-                and c["nsteps"] == 998)
+                and c["nsteps"] == 998 and c["route"] == route_main)
     errs = [c["max_abs_err"] if c["max_abs_err"] is not None
             else c["recon_rel_err"] for c in cases]
     emit({"kernels": [{
         "name": "cpqr_hopper", "route": "cuda",
+        "kernel_route": route_main,
         "source": "enlsip_tpu_torch/csrc/cpqr.cu",
         "replaces": "enlsip_tpu/ops/pallas_qr2.py:34",
         "launches": launches_main,
         "max_abs_err": max(errs),
-        "tolerance": "float64: perm equal, packed R/tails/tau within 1e-9 "
-                     "relative; float32: ||QR - M[:,perm]|| <= 1e-4 ||M||, "
-                     "perm equal on the graded matrix",
+        "tolerance": "both routes; float64: perm equal, packed R/tails/tau "
+                     "within 1e-9 relative, ||QR - M[:,perm]|| <= 1e-12 ||M||; "
+                     "float32: ||QR - M[:,perm]|| <= 1e-4 ||M||, perm equal on "
+                     "the graded matrix; two launches give equal bits",
         "max_err": max(errs), "kernel_ms": head["ms"],
         "ms": head["ms"], "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
-        "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000)",
+        "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000), by "
+                    "the route the main path took (kernel_route)",
         "l2_copy_GBps": l2_rate,
         "cases": cases}, _batched_kernel_entry(bcases, launches_batched),
         *_wy_kernel_entries(wcases, giant)]})

@@ -4,8 +4,11 @@ with a plain C interface, loaded through ``ctypes``.
 Nothing here runs at import time.  :func:`load_library` compiles
 ``csrc/<name>.cu`` for ``sm_90a`` at first use into the build directory
 (``build/`` beside the package), keyed by a hash of every file under
-``csrc/`` so an edited source is rebuilt and an unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per
-source at once.
+``csrc/`` so an edited source is rebuilt and an unchanged one is reused.
+:func:`build_all` starts one ``nvcc`` per source at once.  The compiler
+runs with ``-Xptxas -v``; its output is kept beside the library and
+:func:`resource_usage` condenses it to one line a kernel (registers,
+spill, static shared memory).
 """
 
 from __future__ import annotations
@@ -13,13 +16,14 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -68,8 +72,36 @@ def _finish_build(name: str, proc, tmp: Path, out: Path) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)        # atomic: a reader never sees a partial file
     return out
+
+
+def resource_usage(name: str) -> list[dict]:
+    """What ptxas reported for every kernel of ``csrc/<name>.cu`` when the
+    library was built: mangled name, registers, spill bytes (stores,
+    loads), static shared memory."""
+    log = library_path(name).with_suffix(".log")
+    if not log.exists():
+        return []
+    rows, kernel = [], None
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = {"kernel": m.group(1)}
+            rows.append(kernel)
+            continue
+        if kernel is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            kernel["spill_bytes"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            kernel["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            kernel["static_shared_bytes"] = int(sm.group(1)) if sm else 0
+    return rows
 
 
 def build_all(names=None) -> dict[str, Path]:

@@ -48,22 +48,54 @@ import torch
 
 _CTYPES = {torch.float32: "wy_gram_f32", torch.float64: "wy_gram_f64"}
 
-# What the kernel's tiling takes (csrc/wy_gram.cu): n up to 16 x 8 Gram
-# entries a side, 64-row tiles, and V, W, the J tile and the X tile
-# together within the shared memory one block may use on the card.
+# What the kernel's tiling takes (csrc/wy_gram.cu): n up to 128 (at most
+# three 16 x 32 Gram patches a warp), a walk in 64-row units, and V, W,
+# the ring of J tiles, the X tile and rx, s together within the shared
+# memory one block may use on the card.
 MAX_COLS = 128
 ROW_BLOCK = 64
 MAX_SHARED_BYTES = 232_448
 # Partial Gram sums kept (= blocks launched); fixed, so the summation
 # order does not depend on the card.
 MAX_PARTS = 256
+# (rows of a tile, tiles in the ring), in the order the kernel tries them:
+# two 64-row tiles so that one loads while the other computes, else one
+# 32-row tile.
+TILINGS = ((64, 2), (32, 1))
 
 _APPLY, _GRAM, _GRAM_SCALE, _GRAM_SCALE_NOOUT = range(4)
 
 
-def _shared_bytes(cols: int, k: int, dtype) -> int:
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _row_stride(cols: int, itemsize: int) -> int:
+    """Row stride (elements) of the J tile and of W in shared memory:
+    padded to four elements and skewed off a multiple of 128 bytes."""
+    np_ = _pad4(cols)
+    return np_ + 4 if (np_ * itemsize) % 128 == 0 else np_
+
+
+def _shared_bytes(cols: int, k: int, dtype, row_block: int = 64,
+                  stages: int = 2) -> int:
+    """Shared memory of one block: V (n, kp), W (k, np), ``stages`` tiles
+    (row_block, np), X^T (k, row_block), and rx and s beside every tile
+    (kp = k padded to 4, np the padded row stride), as
+    ``csrc/wy_gram.cu::shared_elems`` lays it out."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
-    return (2 * cols * k + ROW_BLOCK * (cols + k) + 2 * ROW_BLOCK) * itemsize
+    np_, kp = _row_stride(cols, itemsize), _pad4(k)
+    return (cols * kp + k * np_ + stages * row_block * np_ + k * row_block
+            + 2 * stages * row_block) * itemsize
+
+
+def _tiling(cols: int, k: int, dtype):
+    """The first of :data:`TILINGS` that fits the card's shared memory,
+    or None."""
+    for rb, stages in TILINGS:
+        if _shared_bytes(cols, k, dtype, rb, stages) <= MAX_SHARED_BYTES:
+            return rb, stages
+    return None
 
 
 def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
@@ -80,7 +112,7 @@ def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
     return (dev.type in ("cuda", "cpu") and dtype in _CTYPES
             and rows >= 32 * cols and rows >= 4096
             and 1 <= cols <= MAX_COLS and 1 <= k
-            and _shared_bytes(cols, k, dtype) <= MAX_SHARED_BYTES
+            and _tiling(cols, k, dtype) is not None
             and rows < 2 ** 31 - ROW_BLOCK)
 
 
@@ -92,6 +124,8 @@ def _library():
         for fn in _CTYPES.values():
             getattr(lib, fn).argtypes = [ptr] * 8 + [i] * 5 + [ptr]
             getattr(lib, fn).restype = i
+        lib.wy_gram_shared_bytes.argtypes = [i] * 5
+        lib.wy_gram_shared_bytes.restype = ctypes.c_longlong
         lib.wy_gram_error_string.argtypes = [i]
         lib.wy_gram_error_string.restype = ctypes.c_char_p
         lib._enlsip_bound = True
@@ -165,6 +199,10 @@ def _launch(entry, count, variant, J, V, T, rx, rowscale):
                          f"outside the kernel's gate (use_wy_hopper)")
     if not J.is_contiguous():
         raise ValueError(f"{name} takes a row-major contiguous J")
+    if (n * J.element_size()) % 16 == 0 and J.data_ptr() % 16 != 0:
+        # rows that are whole 16-byte chunks are copied 16 bytes at a time
+        raise ValueError(f"{name} takes a J whose storage starts on a "
+                         f"16-byte boundary (a sliced view does not)")
     lib = _library()
     with torch.cuda.device(J.device):
         Vc = V.contiguous()

@@ -158,6 +158,47 @@ def test_dispatch_gate():
     assert not wy.use_wy_hopper(10 ** 6, 100, 50, torch.float16, "cuda")
 
 
+@pytest.mark.parametrize("n,k,dtype,tiling", [
+    (100, 50, torch.float32, (64, 2)),      # the giant-m main shape
+    (100, 50, torch.float64, (64, 2)),
+    (100, 20, torch.float32, (64, 2)),
+    (7, 3, torch.float32, (64, 2)),
+    (128, 128, torch.float32, (32, 1)),     # no room for two 64-row tiles
+    (128, 64, torch.float64, (32, 1)),
+    (128, 128, torch.float64, None),
+])
+def test_tiling_by_shape(n, k, dtype, tiling):
+    """Two 64-row tiles in a ring where the panel leaves room, one 32-row
+    tile otherwise, nothing where even that does not fit."""
+    assert wy._tiling(n, k, dtype) == tiling
+
+
+def test_shared_bytes_formula():
+    """V (n, kp), W (k, np), the tiles (rb, np), X^T (k, rb), rx and s
+    beside every tile; kp pads k to 4, np pads n to 4 and steps off a
+    multiple of 128 bytes."""
+    assert wy._row_stride(100, 4) == 100 and wy._row_stride(7, 4) == 8
+    assert wy._row_stride(128, 4) == 132 and wy._row_stride(96, 4) == 100
+    assert wy._row_stride(100, 8) == 100 and wy._row_stride(16, 8) == 20
+    assert wy._shared_bytes(100, 50, torch.float32) == \
+        (100 * 52 + 50 * 100 + 2 * 64 * 100 + 50 * 64 + 4 * 64) * 4
+    assert wy._shared_bytes(100, 50, torch.float64, 32, 1) == \
+        (100 * 52 + 50 * 100 + 32 * 100 + 50 * 32 + 2 * 32) * 8
+    assert 2 * wy._shared_bytes(100, 50, torch.float32) <= wy.MAX_SHARED_BYTES
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gate_takes_every_panel_the_single_tile_layout_took(dtype):
+    """The shapes accepted do not shrink: whatever fitted V, W, one 64-row
+    J tile and the X tile unpadded, 2 n k + 64 (n + k) + 128 elements,
+    still has a tiling."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    for n in range(1, wy.MAX_COLS + 1):
+        for k in range(1, 2 * wy.MAX_COLS + 1):
+            if (2 * n * k + 64 * (n + k) + 128) * itemsize <= wy.MAX_SHARED_BYTES:
+                assert wy._tiling(n, k, dtype) is not None, (n, k)
+
+
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
     J, V, T, rx, s = (tt(a) for a in _inputs(4100, 7, 3, seed=1))
     wy.reset_launch_counts()
@@ -217,3 +258,10 @@ def test_kernels_match_plain_versions_on_the_card():
         "wy_gram_project_rowscale": 2, "wy_gram_project_noapply": 1}
     with pytest.raises(ValueError, match="contiguous"):
         wy.wy_right_apply(J.t().contiguous().t(), V, T)
+    # rows of whole 16-byte chunks are copied 16 bytes at a time: a view
+    # whose storage starts off such a boundary is refused, not copied
+    J8, V8, T8, _, _ = (tt(a).cuda() for a in _inputs(4096, 8, 3, seed=0))
+    flat = torch.empty(4096 * 8 + 1, dtype=J8.dtype, device="cuda")
+    off = flat[1:].view(4096, 8).copy_(J8)
+    with pytest.raises(ValueError, match="16-byte"):
+        wy.wy_right_apply(off, V8, T8)
