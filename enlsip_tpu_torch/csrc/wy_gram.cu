@@ -534,6 +534,11 @@ int run(const void* J, const void* V, const void* W, const void* rx,
 // without the JQ1 output.  nparts: blocks launched = partial sums kept.
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns the first CUDA error (0 = success).
+//
+// The float64 instantiations are a translation unit of their own:
+// csrc/wy_gram_f64.cu includes this file with WY_GRAM_F64 defined, so the
+// two halves compile side by side and load as two libraries.
+#ifndef WY_GRAM_F64
 extern "C" int wy_gram_f32(const void* J, const void* V, const void* W,
                            const void* rx, const void* s, void* out, void* ws,
                            void* gp, int m, int n, int k, int variant,
@@ -541,7 +546,7 @@ extern "C" int wy_gram_f32(const void* J, const void* V, const void* W,
   return run<float>(J, V, W, rx, s, out, ws, gp, m, n, k, variant, nparts,
                     stream);
 }
-
+#else
 extern "C" int wy_gram_f64(const void* J, const void* V, const void* W,
                            const void* rx, const void* s, void* out, void* ws,
                            void* gp, int m, int n, int k, int variant,
@@ -549,6 +554,7 @@ extern "C" int wy_gram_f64(const void* J, const void* V, const void* W,
   return run<double>(J, V, W, rx, s, out, ws, gp, m, n, k, variant, nparts,
                      stream);
 }
+#endif
 
 // Shared memory (bytes) of the tiling with `rb`-row tiles in a ring of
 // `stages`, as the kernel lays it out.

@@ -46,7 +46,10 @@ import ctypes
 
 import torch
 
-_CTYPES = {torch.float32: "wy_gram_f32", torch.float64: "wy_gram_f64"}
+# dtype -> (library of csrc/, entry point); the float64 instantiations
+# are a library of their own so that the two build side by side
+_CTYPES = {torch.float32: ("wy_gram", "wy_gram_f32"),
+           torch.float64: ("wy_gram_f64", "wy_gram_f64")}
 
 # What the kernel's tiling takes (csrc/wy_gram.cu): n up to 128 (at most
 # three 16 x 32 Gram patches a warp), a walk in 64-row units, and V, W,
@@ -116,14 +119,14 @@ def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
             and rows < 2 ** 31 - ROW_BLOCK)
 
 
-def _library():
+def _library(dtype=torch.float32):
     from ._build import load_library
-    lib = load_library("wy_gram")
+    name, fn = _CTYPES[dtype]
+    lib = load_library(name)
     if not getattr(lib, "_enlsip_bound", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        for fn in _CTYPES.values():
-            getattr(lib, fn).argtypes = [ptr] * 8 + [i] * 5 + [ptr]
-            getattr(lib, fn).restype = i
+        getattr(lib, fn).argtypes = [ptr] * 8 + [i] * 5 + [ptr]
+        getattr(lib, fn).restype = i
         lib.wy_gram_shared_bytes.argtypes = [i] * 5
         lib.wy_gram_shared_bytes.restype = ctypes.c_longlong
         lib.wy_gram_error_string.argtypes = [i]
@@ -203,7 +206,7 @@ def _launch(entry, count, variant, J, V, T, rx, rowscale):
         # rows that are whole 16-byte chunks are copied 16 bytes at a time
         raise ValueError(f"{name} takes a J whose storage starts on a "
                          f"16-byte boundary (a sliced view does not)")
-    lib = _library()
+    lib = _library(J.dtype)
     with torch.cuda.device(J.device):
         Vc = V.contiguous()
         W = (T @ V.t()).contiguous()                   # (k, n)
@@ -222,7 +225,7 @@ def _launch(entry, count, variant, J, V, T, rx, rowscale):
         ptr = lambda t: 0 if t is None else t.data_ptr()
         stream = torch.cuda.current_stream().cuda_stream
         setattr(entry, count, getattr(entry, count) + 1)
-        err = getattr(lib, _CTYPES[J.dtype])(
+        err = getattr(lib, _CTYPES[J.dtype][1])(
             J.data_ptr(), Vc.data_ptr(), W.data_ptr(), ptr(rxc), ptr(sc),
             ptr(out), ptr(ws), ptr(gp), rows, n, k, variant, nparts, stream)
     if err != 0:
