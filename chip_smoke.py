@@ -30,6 +30,15 @@ derivatives; c: dense Jacobian; d: dense, ``tall_qr="qr"``) with seconds
 per solve, iterations, exit code, active constraints, launches of each
 kernel, read-backs per iteration and peak device memory.
 
+Lines of the B2 phase (the batched tiny-matrix CPQR): every row of the
+``kernels`` line's B2 ``cases`` has the group size ``G`` (threads a
+lane), ``bits_equal`` (two launches), the wrapper's call ``ms``, the
+launch alone ``kernel_only_ms`` (both as the stream sees them) and the
+launch's ``device_ms`` on the card; one case feeds the kernel
+``A_act.transpose(-1, -2)`` as ``factor_active`` does; the
+``batched_group_sweep`` line times every G at the main paths' shapes
+and the gate's edge.
+
 Lines of the B1 phase: every ``kernel_cases`` row names its ``route``
 (each case runs through the resident and the stream route of
 ``ops/cpqr_hopper.py``; one oversized case goes through the dispatch to
@@ -41,7 +50,8 @@ reported for every kernel (registers, spill).
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
 ``torch.profiler``, with the device's busy share and the kernels that
-take most of its time.
+take most of its time (for the two batched solves also B2's time, calls
+and share of the device time).
 """
 
 from __future__ import annotations
@@ -70,9 +80,9 @@ from enlsip_tpu_torch.core.driver import solve as core_solve
 from enlsip_tpu_torch.models.model import (_model_functions,
                                            build_constraint_functions,
                                            total_nb_constraints)
+from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
 from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
-    cpqr_batched_packed, cpqr_batched_packed_plain, launch_soa,
-    unpack_batched)
+    cpqr_batched_packed, cpqr_batched_packed_plain, unpack_batched)
 from enlsip_tpu_torch.ops import cpqr_hopper as cpqr_mod
 from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
                                               cpqr_hopper_stream,
@@ -128,6 +138,26 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Median device time of ``fn`` in ms: each run is enqueued behind a
+    sleep kernel, so the events bracket the work on the card and not the
+    host's time to enqueue it (which ``cuda_ms`` includes when the card
+    would otherwise idle)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)
         a.record()
         fn()
         b.record()
@@ -331,6 +361,14 @@ def check_shared_memory_mirrors():
         for rb, stages in wy.TILINGS:
             assert wlib.wy_gram_shared_bytes(n, k, itemsize, rb, stages) == \
                 wy._shared_bytes(n, k, dtype, rb, stages), (n, k, dtype, rb)
+    blib = cb._library()
+    for rows, cols in [(40, 10), (10, 20), (3, 7), (64, 32), (1, 2048),
+                       (2048, 1), (33, 17)]:
+        for itemsize, G in [(4, 1), (8, 2), (4, 4), (8, 8), (4, 16), (8, 32)]:
+            for L in (1, 3, 32 // G):
+                assert blib.cpqr_batched_shared_bytes(rows, cols, itemsize, G, L) \
+                    == cb._shared_bytes(rows, cols, itemsize, G, L), \
+                    (rows, cols, itemsize, G, L)
 
 
 def resident_by_blocks():
@@ -401,6 +439,10 @@ def batched_kernel_cases():
         ("A_act^T hs65", HS65_LANES, h.n, h.l, 2, "leading_live", True),
         ("J2 hs65", HS65_LANES, h.m, h.n, 2, "trailing_live", True),
         ("A_act^T ode_fit", ODE_LANES, o.n, o.l, 4, "leading_live", True),
+        # as factor_active hands it over: A_act.transpose(-1, -2), read in
+        # place through its strides
+        ("A_act^T ode_fit, transposed view", ODE_LANES, o.n, o.l, 4,
+         "transposed_view", True),
         ("J2 ode_fit", ODE_LANES, o.m, o.n, o.n, "normal", True),
         ("10x10 square", ODE_LANES, 10, 10, 10, "normal", False),
         ("513 lanes, 9 live of 20", 513, 16, 20, 9, "leading_live", False),
@@ -414,6 +456,11 @@ def batched_kernel_cases():
 
 def _batched_case_matrix(kind, B, rows, cols, live, dtype, seed):
     rng = np.random.default_rng(seed)
+    if kind == "transposed_view":
+        # A_act (B, l, n): rows past the live constraints are zero
+        A_act = rng.normal(size=(B, cols, rows))
+        A_act[:, live:, :] = 0.0
+        return torch.tensor(A_act, dtype=dtype, device=DEV).transpose(-1, -2)
     M = rng.normal(size=(B, rows, cols))
     if kind == "leading_live":
         M[:, :, live:] = 0.0
@@ -483,37 +530,77 @@ def check_batched_kernel_case(name, B, rows, cols, live, kind, main_path,
         assert float(packed[::3].abs().max()) == 0.0
         assert float(tau[::3].abs().max()) == 0.0
 
-    ms = cuda_ms(lambda: cpqr_batched_packed(M), reps=10)
+    again = cpqr_batched_packed(M)
+    torch.cuda.synchronize()
+    bits_equal = all(torch.equal(x, y) for x, y in
+                     zip((packed, tau, perm), again))
+    assert bits_equal, f"{name}: two launches differ"
+
+    # the wrapper's call and the launch alone (into preallocated outputs)
+    # as the stream sees them, host time to enqueue included where the
+    # card would otherwise idle; and the launch's time on the card alone
+    ms = cuda_ms(lambda: cpqr_batched_packed(M), reps=20)
     plain_ms = cuda_ms(lambda: cpqr_batched_packed_plain(M), reps=3)
-    # the kernel without the wrapper's layout copies, on a fresh copy of
-    # the structure-of-arrays buffer each time (the copy is not timed)
-    soa0 = M.permute(2, 1, 0).contiguous()
-    kernel_ms = []
-    for _ in range(6):
-        soa = soa0.clone()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        launch_soa(soa)
-        b.record()
-        torch.cuda.synchronize()
-        kernel_ms.append(a.elapsed_time(b))
-    kernel_only_ms = statistics.median(kernel_ms[1:])
+    outs = [torch.empty_like(x) for x in (packed, tau, perm)]
+    kernel_only_ms = cuda_ms(lambda: cb.launch(M, *outs), reps=20)
+    device = device_ms(lambda: cb.launch(M, *outs), reps=20)
+    G = cb.group_size(rows, cols, dtype)
+    L = cb.block_lanes(rows, cols, dtype, G)
     bound_ms, bound_by = cpqr_batched_bound(B, rows, cols, dtype)
     return {"case": name, "shape": [B, rows, cols], "live_columns": live,
             "dtype": str(dtype).replace("torch.", ""), "main_path": main_path,
-            "perm_equal": perm_equal,
+            "strides": list(M.stride()), "G": G, "lanes_per_block": L,
+            "shared_bytes": cb._shared_bytes(rows, cols, M.element_size(), G, L),
+            "bits_equal": bits_equal, "perm_equal": perm_equal,
             "perm_equal_share": float(lane_equal.double().mean()),
             "max_abs_err": packed_err, "tau_err": tau_err,
             "recon_rel_err": recon, "ms": ms, "kernel_only_ms": kernel_only_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "device_ms": device, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def check_batched_kernels():
     return [check_batched_kernel_case(*case, dtype)
             for dtype in (torch.float64, torch.float32)
             for case in batched_kernel_cases()]
+
+
+def batched_group_sweep():
+    """The launch's time on the card at every group size G (threads a
+    lane) at the four main-path shapes and the gate's edge, both dtypes,
+    each result held against the plain version (float64: perm equal,
+    1e-9 relative; float32: perm equal on 99 % of lanes at least).
+    ``chosen`` marks the G of ``group_size``."""
+    out = []
+    for name, B, rows, cols, live, kind, main in batched_kernel_cases():
+        if not (main or name.startswith("gate edge")) or kind == "transposed_view":
+            continue
+        for dtype in (torch.float32, torch.float64):
+            M = _batched_case_matrix(kind, B, rows, cols, live, dtype,
+                                     seed=B + rows + cols)
+            pp, ptau, pperm = cpqr_batched_packed_plain(M)
+            chosen = cb.group_size(rows, cols, dtype)
+            scale = max(float(pp.abs().max()), 1e-300)
+            for G in (1, 2, 4, 8, 16, 32):
+                L = cb.block_lanes(rows, cols, dtype, G)
+                outs = [torch.empty_like(x) for x in (pp, ptau, pperm)]
+                cb._launch(M, *outs, G, L)
+                torch.cuda.synchronize()
+                lane_equal = (outs[2] == pperm).all(dim=1)
+                share = float(lane_equal.double().mean())
+                err = float((outs[0] - pp)[lane_equal].abs().max()) / scale \
+                    if share > 0 else None
+                if dtype == torch.float64:
+                    assert share == 1.0 and err <= 1e-9, (name, G, share, err)
+                else:
+                    assert share >= 0.99, (name, G, share)
+                out.append({"case": name, "shape": [B, rows, cols],
+                            "dtype": str(dtype).replace("torch.", ""), "G": G,
+                            "lanes_per_block": L, "chosen": G == chosen,
+                            "perm_equal_share": share, "max_abs_err": err,
+                            "device_ms": device_ms(
+                                lambda: cb._launch(M, *outs, G, L), reps=20)})
+    return out
 
 
 # ------------------------------------------ fused WY kernels (B3-B6)
@@ -873,18 +960,24 @@ def batched_hs65():
     return stats
 
 
-def batched_ode_fit():
-    B, dtype = ODE_LANES, torch.float32
+def _ode_batch():
+    """The ODE fit x 10,000 lanes at float32: (functions, starts,
+    per-lane observations, options, tolerances)."""
     model = et.CnlsModel(**ode_fit.model_kwargs())
     cons, jac = build_constraint_functions(model, DEV)
     assert total_nb_constraints(model) == ODE_DIMS.l
     fns = Functions(res=ode_fit.residuals_data,
                     jac_res=torch.func.jacfwd(ode_fit.residuals_data),
                     cons=lambda x, y: cons(x), jac_cons=lambda x, y: jac(x))
-    opts = et.Options(second_derivatives=False)
-    tols = et.Tols.for_dtype(dtype, DEV)
-    starts = ode_fit.perturbed_starts(B)
-    ys = ode_fit.scenario_observations(B).astype(np.float32)
+    return (fns, ode_fit.perturbed_starts(ODE_LANES),
+            ode_fit.scenario_observations(ODE_LANES).astype(np.float32),
+            et.Options(second_derivatives=False),
+            et.Tols.for_dtype(torch.float32, DEV))
+
+
+def batched_ode_fit():
+    B, dtype = ODE_LANES, torch.float32
+    fns, starts, ys, opts, tols = _ode_batch()
     res, stats = _timed_batch(lambda: solve_batched(
         fns, starts, ODE_DIMS, opts, tols, dtype=dtype, data=ys))
     f = res.f.double().cpu().numpy()
@@ -944,9 +1037,11 @@ def batch_lanes_equal_single():
     return out
 
 
-def profile_solve(solve):
+def profile_solve(solve, kernel=None):
     """One warm solve under torch.profiler: wall seconds, the sum of
-    device kernel time, the busy share, and the top kernels by name."""
+    device kernel time, the busy share, and the top kernels by name; with
+    ``kernel``, also the time, calls and share of device time of the
+    kernels whose name holds that string."""
     from torch.profiler import ProfilerActivity, profile
     solve()
     torch.cuda.synchronize()
@@ -966,7 +1061,14 @@ def profile_solve(solve):
         return {"device_time": "not measured (the profiler saw no kernels)",
                 "wall_seconds_under_profiler": wall}
     rows.sort(key=lambda r: -r[1])
-    return {"wall_seconds_under_profiler": wall,
+    mine = {}
+    if kernel is not None:
+        hits = [r for r in rows if kernel in r[0]]
+        mine = {kernel: {"ms": sum(r[1] for r in hits) / 1e3,
+                         "calls": sum(r[2] for r in hits),
+                         "share_of_device_time":
+                             sum(r[1] for r in hits) / total_us}}
+    return {**mine, "wall_seconds_under_profiler": wall,
             "device_kernel_ms": total_us / 1e3,
             "device_busy_share": total_us / 1e6 / wall,
             "kernel_launches": sum(r[2] for r in rows),
@@ -988,14 +1090,18 @@ def _batched_kernel_entry(bcases, launches):
         "tolerance": "float64: perm equal, packed R/tails/tau within 1e-9 "
                      "relative, ||QR - M[:,perm]|| <= 1e-12 ||M|| per lane; "
                      "float32: ||QR - M[:,perm]|| <= 1e-4 ||M|| per lane, "
-                     "perm equal on the graded batch",
+                     "perm equal on the graded batch; two launches give "
+                     "equal bits",
         "ms": head["ms"], "kernel_only_ms": head["kernel_only_ms"],
+        "device_ms": head["device_ms"], "G": head["G"],
         "plain_ms": head["plain_ms"],
         "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
         "library_ms": None,
         "timed_at": "10000 x 40x10 float32 (J2 of the ODE fit); ms is the "
-                    "wrapper's call with its layout copies, kernel_only_ms "
-                    "the launch alone",
+                    "wrapper's call (three output allocations and one "
+                    "launch) and kernel_only_ms the launch alone, both as "
+                    "the stream sees them (host time to enqueue included); "
+                    "device_ms the launch's time on the card",
         "cases": bcases}
 
 
@@ -1018,6 +1124,7 @@ def main() -> None:
     cases = check_kernels()
     emit({"resident_ms_by_blocks_1000x998_f32": resident_by_blocks()})
     bcases = check_batched_kernels()
+    emit({"batched_group_sweep": batched_group_sweep()})
     wcases = check_wy_kernels()
     emit({"wy_kernel_cases": wcases})
     l2_rate = l2_copy_rate()
@@ -1048,7 +1155,12 @@ def main() -> None:
         tols = et.Tols.for_dtype(torch.float32, DEV)
         emit({"profile_batched_hs65": profile_solve(lambda: solve_batched(
             fns, starts, HS65_DIMS, et.Options(), tols,
-            dtype=torch.float32))})
+            dtype=torch.float32), kernel="cpqr_batched_kernel")})
+        fns, starts, ys, opts, tols = _ode_batch()
+        emit({"profile_batched_ode_fit": profile_solve(
+            lambda: solve_batched(fns, starts, ODE_DIMS, opts, tols,
+                                  dtype=torch.float32, data=ys),
+            kernel="cpqr_batched_kernel")})
 
     assert launches_main > 0, "the main path never launched cpqr_hopper"
     launches_batched = (hs65_stats["cpqr_batched_launches"]

@@ -6,11 +6,12 @@ Replaces the TPU kernel ``enlsip_tpu/ops/pallas_batched_qr.py::_kernel``
 The batched solver factors two tiny masked buffers per lane and lockstep
 trip (A_act^T and J2); as step-by-step tensor code that is some thirty
 launches a Householder step over a (B, rows, cols) buffer.  The kernel
-runs a lane's whole factorization in one thread, so a factorization of
-the batch is ONE launch.  The work is bound by neither bytes nor
-operations at these sizes but by each lane's sequential chain; the
-source note in ``csrc/cpqr_batched.cu`` says what the design does about
-it.
+runs a lane's whole factorization on a group of G threads with the
+matrix in shared memory, so a factorization of the batch is ONE launch:
+it reads the caller's tensor through its strides and writes fresh
+outputs, with no layout copy on either side.  The source note in
+``csrc/cpqr_batched.cu`` says what bounds it and what the design does
+about it.
 
 Beside the kernel:
 
@@ -18,19 +19,26 @@ Beside the kernel:
   arithmetic step by step on a leading batch axis), which
   :func:`cpqr_batched_packed` takes ONLY for a tensor that lies on the
   CPU.  For a CUDA tensor it launches the kernel or raises;
+* the launch shape: :func:`group_size` (threads a lane) and
+  :func:`block_lanes` (lanes a block), pure functions of the shape and
+  type that :func:`launch_shape` caches, and :func:`_shared_bytes`, the
+  block's shared memory, which the source computes again from the same
+  arguments;
+* :func:`launch`, the kernel alone into preallocated outputs;
 * ``cpqr_batched_packed.launches``, a plain integer counting kernel
   launches (one per batch factorization sent to the card).
 
 Differences from the TPU kernel, all deliberate: no 512-lane blocks and
-no batch padding (threads past B return), perm is int32 inside the
-kernel and indexed directly, tau and perm are separate outputs, and the
-kernel is instantiated for float64 too, so a float64 batch on the card
-(the float64 re-solve of escalated lanes) also gets it.
+no batch padding (lanes past B hold zero and are not written back),
+perm comes out as int64 directly, tau and perm are separate outputs, and
+the kernel is instantiated for float64 too, so a float64 batch on the
+card (the float64 re-solve of escalated lanes) also gets it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -38,10 +46,17 @@ from .._device import resolve_device, to_host
 from .blocked_qr import CPQRF, _panel_T
 
 # Static gates of the kernel path (the TPU kernel's numbers, kept):
-# beyond them a thread's working set no longer sits in cache and the
-# batched rank-1 loop of tensor operations is the right tool.
+# beyond them a lane no longer sits in a group's share of shared memory
+# and the batched rank-1 loop of tensor operations is the right tool.
 MAX_KMAX = 32
 MAX_ELEMS = 32 * 64
+
+# Dynamic shared memory a block may ask for on Hopper (227 KB).
+SHARED_LIMIT = 232_448
+# Warps a block when they fit; lanes a block = WARPS * 32 / G.
+WARPS = 2
+# Elements of its lane a thread works on, at most (see group_size).
+WORK = 64
 
 _CTYPES = {torch.float32: "cpqr_batched_f32", torch.float64: "cpqr_batched_f64"}
 
@@ -51,17 +66,67 @@ def in_gate(rows: int, cols: int) -> bool:
     return (0 < min(rows, cols) <= MAX_KMAX) and rows * cols <= MAX_ELEMS
 
 
+def _lane_stride(rows: int, cols: int, G: int) -> int:
+    """Elements between two lanes' matrices in shared memory: row-major
+    with the row stride ``cols | 1``, raised to = G * (cols | 1) mod 32 so
+    that the rows a warp touches at once lie on distinct banks."""
+    ld = cols | 1
+    s = rows * ld
+    return s + (G * ld - s) % 32
+
+
+def _shared_bytes(rows: int, cols: int, itemsize: int, G: int, L: int) -> int:
+    """Dynamic shared memory of one block of L lanes: the matrices, tau,
+    and perm as int32 (``cpqr_batched_shared_bytes`` in the source)."""
+    kmax = min(rows, cols)
+    return L * ((_lane_stride(rows, cols, G) + kmax) * itemsize + 4 * cols)
+
+
+def group_size(rows: int, cols: int, dtype) -> int:
+    """Threads a lane: the smallest power of two G that leaves each thread
+    at most WORK elements of the lane (its ceil(rows / G) rows times the
+    columns), with no more threads than rows and 32 at most.  Fewer
+    threads a lane hide less latency; more repeat the work every thread
+    of a group does once a step (the butterflies, the pivot scan, the
+    reflector).  Read off the group-size sweep on the card: at the main
+    paths' shapes the fastest G is the same in both types, so the rule
+    does not look at ``dtype``."""
+    G = 1
+    while G < min(32, rows) and -(-rows // G) * cols > WORK:
+        G *= 2
+    return G
+
+
+@functools.lru_cache(maxsize=None)
+def launch_shape(rows: int, cols: int, dtype) -> tuple[int, int]:
+    """(G, L) of a launch on a batch of (rows, cols) matrices."""
+    G = group_size(rows, cols, dtype)
+    return G, block_lanes(rows, cols, dtype, G)
+
+
+def block_lanes(rows: int, cols: int, dtype, G: int) -> int:
+    """Lanes a block: WARPS warps of groups, or as many lanes as fit a
+    block's shared memory where fewer do (the last warp then runs part
+    full)."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    per_lane = _shared_bytes(rows, cols, itemsize, G, 1)
+    return min(WARPS * 32 // G, SHARED_LIMIT // per_lane)
+
+
+@functools.lru_cache(maxsize=None)
 def _library():
+    """The built library, its C functions typed (built at first use)."""
     from ._build import load_library
     lib = load_library("cpqr_batched")
-    if not getattr(lib, "_enlsip_bound", False):
-        ptr, i = ctypes.c_void_p, ctypes.c_int
-        for fn in _CTYPES.values():
-            getattr(lib, fn).argtypes = [ptr, ptr, ptr, i, i, i, ptr]
-            getattr(lib, fn).restype = i
-        lib.cpqr_batched_error_string.argtypes = [i]
-        lib.cpqr_batched_error_string.restype = ctypes.c_char_p
-        lib._enlsip_bound = True
+    ptr, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for fn in _CTYPES.values():
+        getattr(lib, fn).argtypes = [ptr, ll, ll, ll, ptr, ptr, ptr,
+                                     i, i, i, i, i, ptr]
+        getattr(lib, fn).restype = i
+    lib.cpqr_batched_shared_bytes.argtypes = [i, i, i, i, i]
+    lib.cpqr_batched_shared_bytes.restype = ll
+    lib.cpqr_batched_error_string.argtypes = [i]
+    lib.cpqr_batched_error_string.restype = ctypes.c_char_p
     return lib
 
 
@@ -153,8 +218,9 @@ def cpqr_batched_packed(M: torch.Tensor):
     cols)`` steps on every lane.
 
     Returns ``(packed (B, rows, cols), tau (B, kmax), perm (B, cols)
-    int64)`` as :func:`cpqr_batched_packed_plain` describes.  ``M``
-    itself is never modified, also when it is a permuted view."""
+    int64)`` as :func:`cpqr_batched_packed_plain` describes.  ``M`` may be
+    any strided view (the kernel reads it in place) and is never
+    modified."""
     if M.ndim != 3 or M.shape[1] == 0 or M.shape[2] == 0:
         raise ValueError(f"cpqr_batched_packed takes a (B, rows, cols) batch "
                          f"of non-empty matrices, got shape {tuple(M.shape)}")
@@ -171,46 +237,55 @@ def cpqr_batched_packed(M: torch.Tensor):
     if M.device.type != "cuda":
         raise ValueError(f"cpqr_batched_packed takes a CPU or CUDA tensor, "
                          f"got {M.device}")
-    if B * rows * cols >= 2 ** 31:
-        raise ValueError("cpqr_batched_packed indexes the batch with int32")
-
-    # A fresh structure-of-arrays buffer (cols, rows, B): the kernel
-    # works in place on it.  Copying INTO a new buffer never aliases the
-    # caller's storage, which ``M.permute(...).contiguous()`` can when
-    # ``M`` is itself a permuted view.
-    soa = torch.empty((cols, rows, B), dtype=M.dtype, device=M.device)
-    soa.copy_(M.permute(2, 1, 0))
-    tau, perm = launch_soa(soa)
-    return (soa.permute(2, 1, 0).contiguous(), tau.t().contiguous(),
-            perm.t().to(torch.int64))
+    packed = torch.empty((B, rows, cols), dtype=M.dtype, device=M.device)
+    tau = torch.empty((B, min(rows, cols)), dtype=M.dtype, device=M.device)
+    perm = torch.empty((B, cols), dtype=torch.int64, device=M.device)
+    _launch(M, packed, tau, perm, *launch_shape(rows, cols, M.dtype))
+    return packed, tau, perm
 
 
-def launch_soa(soa: torch.Tensor):
-    """Launch the kernel on a contiguous CUDA structure-of-arrays buffer
-    ``soa`` (cols, rows, B), which it overwrites with the packed result;
-    returns ``(tau (kmax, B), perm (cols, B) int32)``.  The one place the
-    kernel is launched and counted."""
-    cols, rows, B = soa.shape
-    if not (soa.is_cuda and soa.is_contiguous() and soa.dtype in _CTYPES
-            and in_gate(rows, cols)):
-        raise ValueError("launch_soa takes a contiguous CUDA float32/float64 "
-                         "(cols, rows, B) buffer inside the kernel's gate")
+def launch(M: torch.Tensor, packed: torch.Tensor, tau: torch.Tensor,
+           perm: torch.Tensor) -> None:
+    """Launch the kernel on a CUDA batch ``M`` (B, rows, cols), any
+    strides, into preallocated contiguous outputs ``packed`` (B, rows,
+    cols), ``tau`` (B, kmax) and ``perm`` (B, cols) int64, with the launch
+    shape of :func:`launch_shape`."""
+    B, rows, cols = M.shape
+    outs = ((packed, (B, rows, cols), M.dtype),
+            (tau, (B, min(rows, cols)), M.dtype),
+            (perm, (B, cols), torch.int64))
+    if not (M.is_cuda and M.dtype in _CTYPES and in_gate(rows, cols)
+            and all(o.device == M.device and tuple(o.shape) == shape
+                    and o.dtype == dt and o.is_contiguous()
+                    for o, shape, dt in outs)):
+        raise ValueError("the batched CPQR kernel takes a CUDA float32/float64 "
+                         "(B, rows, cols) batch inside its gate and contiguous "
+                         "outputs of its shapes on the same device")
+    _launch(M, packed, tau, perm, *launch_shape(rows, cols, M.dtype))
+
+
+def _launch(M, packed, tau, perm, G: int, L: int) -> None:
+    """The one place the kernel is launched and counted: ``G`` threads a
+    lane, ``L`` lanes a block, on outputs the caller has checked (the
+    source rejects a G or L it does not take)."""
+    B, rows, cols = M.shape
+    if B == 0:
+        return
     lib = _library()
-    with torch.cuda.device(soa.device):
-        tau = torch.empty((min(rows, cols), B), dtype=soa.dtype,
-                          device=soa.device)
-        perm = torch.empty((cols, B), dtype=torch.int32, device=soa.device)
-        if B > 0:
-            stream = torch.cuda.current_stream().cuda_stream
-            cpqr_batched_packed.launches += 1
-            err = getattr(lib, _CTYPES[soa.dtype])(
-                soa.data_ptr(), tau.data_ptr(), perm.data_ptr(), rows, cols,
-                B, stream)
-            if err != 0:
-                raise RuntimeError(
-                    f"cpqr_batched kernel launch failed: "
-                    f"{lib.cpqr_batched_error_string(err).decode()} ({err})")
-    return tau, perm
+    if M.device.index != torch.cuda.current_device():
+        with torch.cuda.device(M.device):
+            return _launch(M, packed, tau, perm, G, L)
+    cpqr_batched_packed.launches += 1
+    # the raw current stream: building a torch.cuda.Stream costs more
+    # host time than the launch itself
+    err = getattr(lib, _CTYPES[M.dtype])(
+        M.data_ptr(), *M.stride(), packed.data_ptr(), tau.data_ptr(),
+        perm.data_ptr(), rows, cols, B, G, L,
+        torch._C._cuda_getCurrentRawStream(M.device.index))
+    if err != 0:
+        raise RuntimeError(f"cpqr_batched kernel launch failed: "
+                           f"{lib.cpqr_batched_error_string(err).decode()} "
+                           f"({err})")
 
 
 cpqr_batched_packed.launches = 0

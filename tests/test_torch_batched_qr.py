@@ -154,14 +154,19 @@ def test_wrapper_rejects_bad_input_and_counts_no_cpu_launch():
 def test_kernel_matches_plain_version_on_the_card():
     """Needs the card and nvcc (run with ``pytest -m gpu``);
     ``chip_smoke.py`` makes the same comparison at the batched path's
-    shapes."""
+    shapes.  Also on a transposed view, as ``factor_active`` hands over
+    A_act^T: the kernel reads it in place through its strides."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    M = tt(_batch(16, 20, 9, batch=513)).cuda()
-    before = cb.cpqr_batched_packed.launches
-    packed, tau, perm = cb.cpqr_batched_packed(M)
-    assert cb.cpqr_batched_packed.launches == before + 1
-    pp, ptau, pperm = cb.cpqr_batched_packed_plain(M)
-    assert torch.equal(perm, pperm)
-    assert float((packed - pp).abs().max()) <= 1e-9 * float(pp.abs().max())
-    assert float((tau - ptau).abs().max()) <= 1e-9
+    storage = tt(_batch(20, 16, 20, batch=513)).cuda()
+    for M in (tt(_batch(16, 20, 9, batch=513)).cuda(),
+              storage.transpose(-1, -2)):
+        before = cb.cpqr_batched_packed.launches
+        packed, tau, perm = cb.cpqr_batched_packed(M)
+        assert cb.cpqr_batched_packed.launches == before + 1
+        pp, ptau, pperm = cb.cpqr_batched_packed_plain(M)
+        assert torch.equal(perm, pperm)
+        assert float((packed - pp).abs().max()) <= 1e-9 * float(pp.abs().max())
+        assert float((tau - ptau).abs().max()) <= 1e-9
+        again = cb.cpqr_batched_packed(M)
+        assert all(torch.equal(a, b) for a, b in zip((packed, tau, perm), again))
