@@ -47,15 +47,34 @@ grid-wide barrier (the resident kernel's own and cooperative-groups
 ``grid.sync()``) at the block counts tried; ``build`` carries what ptxas
 reported for every kernel (registers, spill).
 
+Lines of the scenario-suite slice (``parallel/suite.py``,
+``parallel/hetero.py``, ``utils/checkpoint.py``; every batched
+factorization there is B2): ``hs_suite`` solves the 28 HS problems from
+their standard starts in ONE fused batch at float32 and float64 (matched,
+misses, seconds, trips, B2 launches), then at float32 the mask-route
+float64 escalation and the fused multistart (K = 32) of what is still
+missed; ``hetero_suite`` (5 families x 512 lanes), ``hetero_100k``
+(x 20,000) and ``hetero_newton`` (6 families with hs42, second
+derivatives on; lanes that took a Newton step) time one fused float32
+batch after a warm-up of 8 lanes a family (solves/s, match rate, trips,
+read-backs and launches a trip, peak memory); ``hetero_lanes_equal_bucketed``
+holds the fused float64 solve against one batch a family and
+``checkpoint_resume`` a stopped, saved and resumed fused batch against
+the uninterrupted one (to the bit).  No padded shape may reach the
+batched factorization's plain version on the card.  ``batched_ode_fit``
+lists the lanes that miss before and after escalation.
+
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
 ``torch.profiler``, with the device's busy share and the kernels that
-take most of its time (for the two batched solves also B2's time, calls
-and share of the device time).
+take most of its time (for the batched solves also B2's time, calls
+and share of the device time; ``profile_hetero_suite`` is the fused
+five-family batch).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -89,8 +108,14 @@ from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
                                               fits_resident)
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
-from enlsip_tpu_torch.parallel import run_batch, solve_batched
-from enlsip_tpu_torch.problems import ode_fit
+from enlsip_tpu_torch.core.batched import lane_functions, lane_hessians
+from enlsip_tpu_torch.parallel import (BatchResult, escalate_lanes_f64,
+                                       finalize, fuse_families,
+                                       hs_scenario_batch, init_batch,
+                                       run_batch, solve_batched,
+                                       solve_suite_batched, solve_suite_fused)
+from enlsip_tpu_torch.problems import get_problem, ode_fit, problem_names
+from enlsip_tpu_torch.utils import load_carry, save_carry
 from enlsip_tpu_torch.problems.giant_m import giant_m
 from enlsip_tpu_torch.problems.classic import (HS65, HS65_FSTAR, OSBORNE2,
                                                chained_rosenbrock,
@@ -127,6 +152,17 @@ CHAINED_WOOD20_FSTAR = 474.2585640745832
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def phase(name, fn):
+    """Run one phase, print its result as ``{name: result}`` with the
+    phase's wall seconds beside it, and return the result (a tuple's
+    first member is the printed part)."""
+    t0 = time.time()
+    out = fn()
+    emit({name: out[0] if isinstance(out, tuple) else out,
+          "phase_seconds": time.time() - t0})
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -912,10 +948,11 @@ def _hs65_batch(dtype, B, seed=0):
     return fns, x0[None, :] + 0.3 * rng.normal(size=(B, 3))
 
 
-def _timed_batch(solve):
-    """Warm-up solve, then one solve with every count set to 0 just
-    before it and read just after."""
-    solve()
+def _timed_batch(solve, warmup=None):
+    """Warm-up solve (``warmup`` if given, a smaller call of the same
+    path), then one solve with every count set to 0 just before it and
+    read just after."""
+    (warmup or solve)()
     torch.cuda.synchronize()
     cpqr_batched_packed.launches = 0
     cpqr_hopper.launches = 0
@@ -992,6 +1029,7 @@ def batched_ode_fit():
                       float(np.mean(~miss & (ec > 0))),
                   "exit_codes": _exit_code_counts(ec),
                   "miss_by_exit_code": _exit_code_counts(ec[miss]),
+                  "missed_lanes": np.flatnonzero(miss).tolist(),
                   "solves_per_second": B / stats["seconds_per_batch_solve"]})
     # the lanes that missed or did not converge, re-solved at float64
     esc = miss | (ec <= 0)
@@ -1009,7 +1047,9 @@ def batched_ode_fit():
         "share_f_below_1e-3": float(np.mean(~miss_e)),
         "share_f_below_1e-3_and_converged":
             float(np.mean(~miss_e & (ec_e > 0))),
-        "miss_by_exit_code": _exit_code_counts(ec_e[miss_e])}
+        "miss_by_exit_code": _exit_code_counts(ec_e[miss_e]),
+        "escalated_lanes": np.flatnonzero(esc).tolist(),
+        "missed_lanes": np.flatnonzero(miss_e).tolist()}
     return stats
 
 
@@ -1035,6 +1075,297 @@ def batch_lanes_equal_single():
         assert row["max_abs_dx"] <= LANE_SINGLE_X_ATOL, row
         out.append(row)
     return out
+
+
+# ------------------------------ scenario suites (HS suite, hetero batch)
+
+HS_MISSES_REFERENCE = {"hs2", "hs13", "hs16", "hs27"}
+HETERO_FAMILIES = ["hs14", "hs65", "hs26", "hs53", "hs79"]
+HETERO_NEWTON_FAMILIES = HETERO_FAMILIES + ["hs42"]
+HS_MATCH_RTOL = 1e-5
+
+
+def _tols_fn(dtype):
+    return et.Tols.for_dtype(dtype, DEV)
+
+
+class _PlainOnCard:
+    """Calls of the batched CPQR's plain version on a CUDA tensor (the
+    masked rank-1 loop that ``cpqr_blocked`` runs outside B2's gate)."""
+
+    calls = 0
+
+
+def watch_plain_on_card():
+    plain = cb.cpqr_batched_packed_plain
+
+    def counted(M, *args, **kwargs):
+        if M.is_cuda:
+            _PlainOnCard.calls += 1
+        return plain(M, *args, **kwargs)
+
+    cb.cpqr_batched_packed_plain = counted
+
+
+def _hs_hit(f, fstar):
+    return abs(f - fstar) <= HS_MATCH_RTOL * (1 + abs(fstar))
+
+
+def _hs_misses(out, fams, lane=0):
+    return sorted(n for n in fams
+                  if not _hs_hit(float(out[n].f[lane]), fams[n].fstar))
+
+
+def _unsplit(out, fused):
+    """The fused BatchResult back from its per-family split (the slices
+    are contiguous, in order)."""
+    names = list(fused.slices)
+    cat = lambda get: torch.cat([get(out[n]) for n in names])
+    pad = lambda x: torch.nn.functional.pad(x, (0, fused.dims.n - x.shape[1]))
+    return BatchResult(
+        exit_code=cat(lambda r: r.exit_code), x=cat(lambda r: pad(r.x)),
+        f=cat(lambda r: r.f), n_iter=cat(lambda r: r.n_iter),
+        counters=type(out[names[0]].counters)(*(
+            cat(lambda r, i=i: r.counters[i]) for i in range(4))))
+
+
+def _split(res, fused):
+    """A fused BatchResult's first lane of each family: (f, exit code)."""
+    f = res.f.double().cpu().numpy()
+    ec = res.exit_code.cpu().numpy()
+    return {n: (f[sl], ec[sl]) for n, sl in fused.slices.items()}
+
+
+def hs_suite():
+    """The 28 HS problems from their standard starts in ONE fused batch
+    (benchmarks/hs_suite_bench.py), float32 and float64; at float32 the
+    mask-route float64 escalation of the misses and the non-converged
+    lanes, then the fused multistart of what is still missed, scored as
+    the reference scores it (a family matches if any converged lane hits
+    f*)."""
+    names = problem_names()
+    fams = hs_scenario_batch(names, per_family=1, scale=0.0)
+    fused = fuse_families(fams)
+    solve = lambda dtype, opts=et.Options(): solve_suite_fused(
+        fams, opts, _tols_fn, dtype=dtype, fused=fused)
+    solve(torch.float32, et.Options(max_iter=2))     # the phase's warm-up
+    rows = {}
+    for dtype in (torch.float32, torch.float64):
+        out, stats = _timed_batch(lambda: solve(dtype), warmup=lambda: None)
+        misses = _hs_misses(out, fams)
+        for n in names:
+            assert out[n].x.shape == (1, fams[n].dims.n)
+        name = str(dtype).replace("torch.", "")
+        rows[name] = {"matched": len(names) - len(misses), "total": len(names),
+                      "misses": misses,
+                      "wall_seconds": stats["seconds_per_batch_solve"],
+                      "trips": stats["trips"],
+                      "cpqr_batched_launches": stats["cpqr_batched_launches"],
+                      "host_readbacks": stats["host_readbacks"]}
+        if dtype == torch.float32:
+            out32, misses32 = out, misses
+    assert set(rows["float64"]["misses"]) == HS_MISSES_REFERENCE, rows
+
+    # mask-route escalation of the float32 misses and non-converged lanes
+    res32 = _unsplit(out32, fused)
+    lanes = res32.exit_code <= 0
+    for n in misses32:
+        lanes[fused.slices[n]] = True
+    t0 = time.time()
+    esc = escalate_lanes_f64(fused.fns, fused.x0, fused.dims, et.Options(),
+                             res32, data=fused.data, rdims=fused.rdims,
+                             mask=lanes)
+    torch.cuda.synchronize()
+    per = _split(esc, fused)
+    still = sorted(n for n in names
+                   if not _hs_hit(float(per[n][0][0]), fams[n].fstar))
+    rows["float32"].update({"escalated_lanes": int(lanes.sum()),
+                            "escalation_seconds": time.time() - t0,
+                            "matched_escalated": len(names) - len(still),
+                            "misses_escalated": still})
+    assert set(still) <= HS_MISSES_REFERENCE, rows
+    if still:
+        rows["float32"].update(_hs_multistart(still, len(names)))
+        assert set(rows["float32"]["misses_multistart"]) <= \
+            HS_MISSES_REFERENCE, rows
+    return rows
+
+
+def _hs_multistart(still, total, K=32):
+    """K starts a family (lane 0 the standard start, the others at
+    scale 1.0) in one fused float32 batch; families still missed have
+    their lanes re-solved at float64."""
+    fams = hs_scenario_batch(still, per_family=K, scale=1.0)
+    for n in still:
+        xb = fams[n].x0_batch.clone()
+        xb[0] = torch.as_tensor(get_problem(n)[0]["starting_point"],
+                                dtype=xb.dtype)
+        fams[n] = fams[n]._replace(x0_batch=xb)
+    fused = fuse_families(fams)
+    t0 = time.time()
+    res = solve_batched(fused.fns, fused.x0, fused.dims, et.Options(),
+                        _tols_fn(torch.float32), dtype=torch.float32,
+                        data=fused.data, rdims=fused.rdims)
+    trips = run_batch.last_trips
+
+    def any_hit(per):
+        return [n for n in per if not any(
+            (e > 0) and _hs_hit(f, fams[n].fstar) for f, e in zip(*per[n]))]
+
+    misses = any_hit(_split(res, fused))
+    if misses:
+        mask = torch.zeros(fused.x0.shape[0], dtype=torch.bool)
+        for n in misses:
+            mask[fused.slices[n]] = True
+        res = escalate_lanes_f64(fused.fns, fused.x0, fused.dims,
+                                 et.Options(), res, data=fused.data,
+                                 rdims=fused.rdims, mask=mask)
+        misses = [n for n in any_hit(_split(res, fused)) if n in misses]
+    torch.cuda.synchronize()
+    return {"matched_multistart": total - len(misses),
+            "misses_multistart": misses, "multistart_k": K,
+            "multistart_lanes": int(fused.x0.shape[0]),
+            "multistart_trips": trips,
+            "multistart_seconds": time.time() - t0}
+
+
+def _hetero_match(out, fams):
+    """|f - f*| < 1e-3 max(1, |f*|) on every lane (bench.py's rule)."""
+    hit = [np.abs(out[n].f.double().cpu().numpy() - fams[n].fstar)
+           < 1e-3 * max(1.0, abs(fams[n].fstar)) for n in fams]
+    return float(np.mean(np.concatenate(hit)))
+
+
+def _hetero(names, per_family, second_derivatives=False):
+    """One fused float32 batch of ``per_family`` perturbed starts of each
+    family (seed 0), ``Options(max_iter=60)``, after a warm-up of 8 lanes
+    a family and 2 iterations (the trips, not the lanes, cost the time:
+    every trip is bound by the host)."""
+    fams = hs_scenario_batch(names, per_family=per_family, seed=0)
+    opts = et.Options(max_iter=60, second_derivatives=second_derivatives)
+    fused = fuse_families(fams)
+    warm = hs_scenario_batch(names, per_family=8, seed=1)
+    warm_opts = dataclasses.replace(opts, max_iter=2)
+    torch.cuda.reset_peak_memory_stats()
+    out, stats = _timed_batch(
+        lambda: solve_suite_fused(fams, opts, _tols_fn, dtype=torch.float32,
+                                  fused=fused),
+        warmup=lambda: solve_suite_fused(warm, warm_opts, _tols_fn,
+                                         dtype=torch.float32))
+    B = int(fused.x0.shape[0])
+    for n in names:
+        assert torch.all(torch.isfinite(out[n].x)), n
+        assert torch.all(torch.isfinite(out[n].f)), n
+    match = _hetero_match(out, fams)
+    assert match >= 0.99, (names, match)
+    codes = torch.cat([out[n].exit_code for n in names]).cpu().numpy()
+    stats.update({"families": names, "lanes": B, "dtype": "float32",
+                  "second_derivatives": second_derivatives,
+                  "match_rate": match,
+                  "solves_per_second": B / stats["seconds_per_batch_solve"],
+                  "exit_codes": _exit_code_counts(codes),
+                  "max_memory_allocated_GB":
+                      torch.cuda.max_memory_allocated() / 1e9})
+    return stats, fams, fused, opts
+
+
+def hetero_suite():
+    return _hetero(HETERO_FAMILIES, 512)
+
+
+def hetero_100k():
+    stats, *_ = _hetero(HETERO_FAMILIES, 20_000)
+    return stats
+
+
+def hetero_newton():
+    """The six families with second derivatives on.  The lanes' Newton
+    steps are read from a second run of the same batch through
+    init_batch / run_batch (the carry holds them); the Hessian
+    contractions of the union closures at the final points must be
+    finite on every lane."""
+    stats, fams, fused, opts = _hetero(HETERO_NEWTON_FAMILIES, 512, True)
+    tols = _tols_fn(torch.float32)
+    carry = init_batch(fused.fns, fused.x0, fused.dims, opts, torch.float32,
+                       fused.data, fused.rdims)
+    carry = run_batch(carry, fused.fns, fused.dims, opts, tols,
+                      data=fused.data, rdims=fused.rdims)
+    newton = carry.nb_newton_steps
+    r = lane_functions(fused.fns, fused.data).res(carry.x)
+    lam = torch.randn(carry.x.shape[0], fused.dims.l, dtype=torch.float32,
+                      device=DEV, generator=torch.Generator(DEV).manual_seed(0))
+    r_mat, c_mat = lane_hessians(fused.fns, fused.data)(carry.x, r, lam)
+    finite = bool(torch.all(torch.isfinite(r_mat))) and \
+        bool(torch.all(torch.isfinite(c_mat))) and \
+        bool(torch.all(torch.isfinite(carry.x)))
+    stats.update({"newton_lanes": int((newton > 0).sum()),
+                  "newton_steps": int(newton.sum()),
+                  "newton_lanes_by_family": {
+                      n: int((newton[sl] > 0).sum())
+                      for n, sl in fused.slices.items()},
+                  "hessian_contractions_finite": finite})
+    assert stats["newton_lanes"] > 0, stats
+    assert finite, stats
+    return stats
+
+
+def hetero_lanes_equal_bucketed():
+    """The robust families at float64, 8 lanes each: the fused solve
+    against one batch a family (codes equal, x within 1e-7); one family
+    alone fused equals its bucketed solve to the bit."""
+    robust = ["hs14", "hs65", "hs26", "hs53"]
+    fams = hs_scenario_batch(robust, per_family=8, seed=1)
+    dt = torch.float64
+    buck = solve_suite_batched(fams, et.Options(), _tols_fn, dtype=dt)
+    fused = solve_suite_fused(fams, et.Options(), _tols_fn, dtype=dt)
+    rows = {}
+    for n in robust:
+        b, f = buck[n], fused[n]
+        rows[n] = {"codes_equal": bool(torch.equal(b.exit_code, f.exit_code)),
+                   "max_abs_dx": float((b.x - f.x).abs().max()),
+                   "max_n_iter_diff": int((b.n_iter - f.n_iter).abs().max())}
+        assert rows[n]["codes_equal"] and rows[n]["max_abs_dx"] <= 1e-7, rows
+    one = hs_scenario_batch(["hs42"], per_family=8, seed=1)
+    b = solve_suite_batched(one, et.Options(), _tols_fn, dtype=dt)["hs42"]
+    f = solve_suite_fused(one, et.Options(), _tols_fn, dtype=dt)["hs42"]
+    bits = bool(torch.equal(b.x, f.x) and torch.equal(b.exit_code, f.exit_code)
+                and torch.equal(b.n_iter, f.n_iter))
+    rows["hs42_alone_bits_equal"] = bits
+    assert bits, rows
+    return rows
+
+
+def checkpoint_resume():
+    """A fused float32 batch (the five hetero families, 512 lanes each)
+    run for 3 trips, saved, loaded and resumed, against the same batch
+    run without a stop: x, f, exit codes and counters equal to the bit."""
+    fams = hs_scenario_batch(HETERO_FAMILIES, per_family=512, seed=0)
+    fused = fuse_families(fams)
+    opts, dt = et.Options(max_iter=60, second_derivatives=False), \
+        torch.float32
+    tols = _tols_fn(dt)
+    go = lambda c, k=None: run_batch(c, fused.fns, fused.dims, opts, tols,
+                                     max_steps=k, data=fused.data,
+                                     rdims=fused.rdims)
+    start = lambda: init_batch(fused.fns, fused.x0, fused.dims, opts, dt,
+                               fused.data, fused.rdims)
+    whole = finalize(go(start()))
+    mid = go(start(), 3)
+    _build.build_dir().mkdir(parents=True, exist_ok=True)
+    path = str(_build.build_dir() / "checkpoint_resume.npz")
+    save_carry(path, mid)
+    resumed = finalize(go(load_carry(path, like=mid)))
+    same = {"x": bool(torch.equal(whole.x, resumed.x)),
+            "f": bool(torch.equal(whole.f, resumed.f)),
+            "exit_code": bool(torch.equal(whole.exit_code,
+                                          resumed.exit_code)),
+            "n_iter": bool(torch.equal(whole.n_iter, resumed.n_iter)),
+            "counters": all(bool(torch.equal(a, b)) for a, b in
+                            zip(whole.counters, resumed.counters))}
+    assert all(same.values()), same
+    assert bool(torch.all(whole.exit_code != 0))
+    return {"lanes": int(fused.x0.shape[0]), "stopped_after_trips": 3,
+            "bits_equal": same}
 
 
 def profile_solve(solve, kernel=None):
@@ -1076,7 +1407,7 @@ def profile_solve(solve, kernel=None):
                             for k, us, n in rows[:12]]}
 
 
-def _batched_kernel_entry(bcases, launches):
+def _batched_kernel_entry(bcases, launches, launches_by_path):
     head = next(c for c in bcases if c["case"] == "J2 ode_fit"
                 and c["dtype"] == "float32")
     errs = [c["max_abs_err"] for c in bcases] + \
@@ -1085,7 +1416,7 @@ def _batched_kernel_entry(bcases, launches):
         "name": "cpqr_batched_packed", "route": "cuda",
         "source": "enlsip_tpu_torch/csrc/cpqr_batched.cu",
         "replaces": "enlsip_tpu/ops/pallas_batched_qr.py:43",
-        "launches": launches,
+        "launches": launches, "launches_by_path": launches_by_path,
         "max_abs_err": max(errs),
         "tolerance": "float64: perm equal, packed R/tails/tau within 1e-9 "
                      "relative, ||QR - M[:,perm]|| <= 1e-12 ||M|| per lane; "
@@ -1145,6 +1476,15 @@ def main() -> None:
     emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
     giant, gm = solve_giant_m()
     emit({"giant_m": giant})
+    watch_plain_on_card()
+    hs_rows = phase("hs_suite", hs_suite)
+    hetero_stats, hfams, hfused, hopts = phase("hetero_suite", hetero_suite)
+    stats_100k = phase("hetero_100k", hetero_100k)
+    newton_stats = phase("hetero_newton", hetero_newton)
+    phase("hetero_lanes_equal_bucketed", hetero_lanes_equal_bucketed)
+    phase("checkpoint_resume", checkpoint_resume)
+    assert _PlainOnCard.calls == 0, \
+        f"{_PlainOnCard.calls} batched factorizations took the plain version"
     if "--profile" in sys.argv:
         emit({"profile_giant_m_a": profile_solve(
             lambda: _giant_solve(gm, "a"))})
@@ -1161,12 +1501,22 @@ def main() -> None:
             lambda: solve_batched(fns, starts, ODE_DIMS, opts, tols,
                                   dtype=torch.float32, data=ys),
             kernel="cpqr_batched_kernel")})
+        emit({"profile_hetero_suite": profile_solve(
+            lambda: solve_suite_fused(hfams, hopts, _tols_fn,
+                                      dtype=torch.float32, fused=hfused),
+            kernel="cpqr_batched_kernel")})
 
     assert launches_main > 0, "the main path never launched cpqr_hopper"
-    launches_batched = (hs65_stats["cpqr_batched_launches"]
-                        + ode_stats["cpqr_batched_launches"])
-    assert launches_batched > 0, \
-        "the batched paths never launched cpqr_batched_packed"
+    launches_by_path = {
+        "batched_hs65": hs65_stats["cpqr_batched_launches"],
+        "batched_ode_fit": ode_stats["cpqr_batched_launches"],
+        "hs_suite_float32": hs_rows["float32"]["cpqr_batched_launches"],
+        "hetero_suite": hetero_stats["cpqr_batched_launches"],
+        "hetero_100k": stats_100k["cpqr_batched_launches"],
+        "hetero_newton": newton_stats["cpqr_batched_launches"]}
+    assert all(v > 0 for v in launches_by_path.values()), \
+        ("a batched path never launched cpqr_batched_packed", launches_by_path)
+    launches_batched = sum(launches_by_path.values())
     route_main = solves[0]["cpqr_route"]
     assert route_main == "resident", route_main
     head = next(c for c in cases
@@ -1192,7 +1542,8 @@ def main() -> None:
         "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000), by "
                     "the route the main path took (kernel_route)",
         "l2_copy_GBps": l2_rate,
-        "cases": cases}, _batched_kernel_entry(bcases, launches_batched),
+        "cases": cases}, _batched_kernel_entry(bcases, launches_batched,
+                                              launches_by_path),
         *_wy_kernel_entries(wcases, giant)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

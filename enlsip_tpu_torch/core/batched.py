@@ -28,7 +28,8 @@ from .._lanes import dot, tree_where
 from .direction import (AnalysResult, analysis_decide, newton_direction,
                         subspace_direction)
 from .driver import (Functions, WorkingSetRound, _active_cx_sum,
-                     _post_direction, _stall_hint, _working_set_round)
+                     _cx_sq_sum, _post_direction, _stall_hint,
+                     _working_set_round)
 from .subproblem import hessian_contractions
 from .types import Carry, Dims, Options, Tols
 
@@ -76,8 +77,11 @@ def lane_functions(fns: Functions, data=None) -> Functions:
         else:
             one = lambda x, p, a: fns.res_trial(x, p)(a)
             res_trial = lambda x, p: (lambda a: torch.func.vmap(one)(x, p, a))
-    return Functions(lift(fns.res), lift(fns.jac_res), lift(fns.cons),
-                     lift(fns.jac_cons), res_trial)
+    # a closure that checks its output (utils/debug.py) is lifted inside
+    # its check: a mapped call cannot branch on a value
+    mapped = lambda f: f.mapped(lift) if hasattr(f, "mapped") else lift(f)
+    return Functions(mapped(fns.res), mapped(fns.jac_res), mapped(fns.cons),
+                     mapped(fns.jac_cons), res_trial)
 
 
 def lane_hessians(fns: Functions, data=None):
@@ -152,13 +156,7 @@ def batched_iterate_body(carry: Carry, lfns: Functions, dims: Dims,
     x, rx, cx, J, A, gf = (carry.x, carry.rx, carry.cx, carry.J, carry.A,
                            carry.gf)
     rx_sum_start = dot(rx, rx)
-    if rdims is None:
-        cx_sum_start = dot(cx, cx)
-    else:
-        real = torch.arange(dims.l, device=cx.device) < \
-            torch.as_tensor(rdims.l, device=cx.device)[..., None]
-        cx_sum_start = torch.sum(torch.where(real, cx * cx,
-                                             torch.zeros_like(cx)), dim=-1)
+    cx_sum_start = _cx_sq_sum(cx, dims, rdims)
 
     # WRKSET: round 1 always; F_L11 and the second-order deletion round
     # only when some live lane needs them

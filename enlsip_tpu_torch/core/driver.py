@@ -322,6 +322,18 @@ def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
                 lambda: _ws_keep(r1, mask), lanes)
 
 
+def _cx_sq_sum(cx, dims: Dims, rdims):
+    """||cx||^2 over each lane's true l constraints (the reference's
+    dot(cx, cx)); the padding rows of a heterogeneous fused batch, which
+    hold ``PAD_CX``, are left out.  Without ``rdims`` it is dot(cx, cx)."""
+    if rdims is None:
+        return dot(cx, cx)
+    real = torch.arange(dims.l, device=cx.device) < \
+        ex(torch.as_tensor(rdims.l, device=cx.device))
+    return torch.sum(torch.where(real, cx * cx, torch.zeros_like(cx)),
+                     dim=-1)
+
+
 def _count(flag):
     """A host bool or a per-lane bool tensor as an increment."""
     return flag.to(torch.int64) if isinstance(flag, torch.Tensor) \
@@ -347,7 +359,7 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
     host = (lambda v: i(v)) if lead else (lambda v: v)
     prev = PrevIter(
-        x=x0, rx_sum=dot(rx, rx), cx_sum=dot(cx, cx),
+        x=x0, rx_sum=dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
         t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
         progress=f(0.0), predicted_reduction=f(0.0),
         rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
@@ -385,7 +397,7 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     x, rx, cx, J, A, gf = (carry.x, carry.rx, carry.cx, carry.J, carry.A,
                            carry.gf)
     rx_sum_start = dot(rx, rx)
-    cx_sum_start = dot(cx, cx)
+    cx_sum_start = _cx_sq_sum(cx, dims, rdims)
 
     # --- EVSCAL + WRKSET ------------------------------------------------
     jb = _jac_base(fns)

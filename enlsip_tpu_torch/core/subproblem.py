@@ -431,8 +431,14 @@ def hessian_contractions(res_fn: Callable, cons_fn: Callable,
     """
     rxc = rx.detach()
     lamc = lam_full.detach()
-    r_mat = torch.func.hessian(lambda z: torch.dot(res_fn(z), rxc))(x)
-    c_mat = torch.func.hessian(lambda z: torch.dot(cons_fn(z), lamc))(x)
+    # torch.func's forward mode turns a Python float times a 0-d float32
+    # tensor (closures written on x[i], as the HS problems are) into a
+    # float64 tangent, and forward-over-reverse then fails on mixed types;
+    # below float64 the same Hessian is taken reverse-over-reverse.
+    hess = torch.func.hessian if x.dtype == torch.float64 else \
+        (lambda f: torch.func.jacrev(torch.func.jacrev(f)))
+    r_mat = hess(lambda z: torch.dot(res_fn(z), rxc))(x)
+    c_mat = hess(lambda z: torch.dot(cons_fn(z), lamc))(x)
     return r_mat, c_mat
 
 

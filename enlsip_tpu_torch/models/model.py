@@ -213,8 +213,11 @@ def build_constraint_functions(model: CnlsModel, device="cpu"):
                               device=device)
     upp_idx = torch.as_tensor(np.nonzero(np.isfinite(model.x_upp))[0],
                               device=device)
-    xl = torch.as_tensor(model.x_low, device=device)
-    xu = torch.as_tensor(model.x_upp, device=device)
+    # the bounds in each solve dtype: a float64 bound in a float32
+    # closure would make its second derivatives mix the two types
+    xl, xu = ({dt: torch.as_tensor(v, dtype=dt, device=device)
+               for dt in (torch.float32, torch.float64)}
+              for v in (model.x_low, model.x_upp))
     eye = torch.eye(n, dtype=torch.float64, device=device)
 
     blocks_val = []
@@ -228,10 +231,10 @@ def build_constraint_functions(model: CnlsModel, device="cpu"):
         blocks_jac.append(model.jacobian_ineqcons
                           or _ad_jac(model.ineq_constraints))
     if low_idx.shape[0] > 0:
-        blocks_val.append(lambda x: (x - xl)[low_idx])
+        blocks_val.append(lambda x: (x - xl[x.dtype])[low_idx])
         blocks_jac.append(lambda x: eye[low_idx])
     if upp_idx.shape[0] > 0:
-        blocks_val.append(lambda x: (xu - x)[upp_idx])
+        blocks_val.append(lambda x: (xu[x.dtype] - x)[upp_idx])
         blocks_jac.append(lambda x: -eye[upp_idx])
 
     def cons(x):

@@ -9,6 +9,12 @@ from enlsip_tpu_torch.utils.convert import from_reference
 CPU = torch.device("cpu")
 F64 = torch.float64
 
+# The port's tests work on small tensors, and the suite runs one worker
+# process a core or more (pytest-xdist); torch's default of one intra-op
+# thread a core in every worker oversubscribes the machine and slows the
+# other workers' tests, the timed ones among them.
+torch.set_num_threads(1)
+
 
 def ref_tree(obj):
     """A JAX-side structure (NamedTuple of arrays, possibly nested) as
