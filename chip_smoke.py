@@ -35,9 +35,11 @@ Lines of the B2 phase (the batched tiny-matrix CPQR): every row of the
 lane), ``bits_equal`` (two launches), the wrapper's call ``ms``, the
 launch alone ``kernel_only_ms`` (both as the stream sees them) and the
 launch's ``device_ms`` on the card; one case feeds the kernel
-``A_act.transpose(-1, -2)`` as ``factor_active`` does; the
-``batched_group_sweep`` line times every G at the main paths' shapes
-and the gate's edge.
+``A_act.transpose(-1, -2)`` as ``factor_active`` does; the fused
+scenario batches' J2, A_act^T and L11 come with each lane zero past its
+family's own dimensions (its zero columns must pivot after its live
+ones); the ``batched_group_sweep`` line times every G at the main paths'
+shapes and the gate's edge.
 
 Lines of the B1 phase: every ``kernel_cases`` row names its ``route``
 (each case runs through the resident and the stream route of
@@ -61,7 +63,8 @@ read-backs and launches a trip, peak memory); ``hetero_lanes_equal_bucketed``
 holds the fused float64 solve against one batch a family and
 ``checkpoint_resume`` a stopped, saved and resumed fused batch against
 the uninterrupted one (to the bit).  No padded shape may reach the
-batched factorization's plain version on the card.  ``batched_ode_fit``
+batched factorization's plain version on the card
+(``cpqr_batched_packed_plain.cuda_calls`` stays 0 over these phases).  ``batched_ode_fit``
 lists the lanes that miss before and after escalation.
 
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
@@ -75,6 +78,7 @@ five-family batch).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -109,7 +113,7 @@ from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
 from enlsip_tpu_torch.core.batched import lane_functions, lane_hessians
-from enlsip_tpu_torch.parallel import (BatchResult, escalate_lanes_f64,
+from enlsip_tpu_torch.parallel import (escalate_lanes_f64,
                                        finalize, fuse_families,
                                        hs_scenario_batch, init_batch,
                                        run_batch, solve_batched,
@@ -464,12 +468,59 @@ ODE_DIMS = et.Dims(n=ode_fit.N_PARAMS, m=ode_fit.N_POINTS, q=0,
                    l=2 * ode_fit.N_PARAMS)
 HS65_LANES = 4096
 ODE_LANES = 10_000
+HETERO_FAMILIES = ["hs14", "hs65", "hs26", "hs53", "hs79"]
+HETERO_NEWTON_FAMILIES = HETERO_FAMILIES + ["hs42"]
+# the fused scenario batches of the suite phases: (phase, families, lanes
+# a family)
+FUSED_SETS = [("hs_suite", None, 1), ("hetero_suite", HETERO_FAMILIES, 512),
+              ("hetero_100k", HETERO_FAMILIES, 20_000),
+              ("hetero_newton", HETERO_NEWTON_FAMILIES, 512)]
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_layouts():
+    """B2's three shapes on each fused batch of the suite phases, with
+    each lane's live block as the solver hands it over (its family's
+    true n_f, m_f, l_f; zero rows and columns past them):
+
+    * J2 (M, N): rows < m_f, columns in [rankA, n_f) (the columns below
+      rankA are masked out, those >= n_f are parameters the family does
+      not have);
+    * A_act^T (N, L): rows < n_f, columns < t (t active constraints of
+      l_f, t = 0 included);
+    * L11 = R_A^T (L, ka): lower trapezoid, rows < t, columns
+      < min(t, n_f).
+
+    rankA and t are drawn per lane (numpy, seed 0).  Returns (name, B,
+    rows, cols, live mask (B, rows, cols), "padded", True) rows."""
+    rng = np.random.default_rng(0)
+    out = []
+    for phase_name, names, per in FUSED_SETS:
+        fused = fuse_families(hs_scenario_batch(
+            names or problem_names(), per_family=per, scale=0.0, device=DEV),
+            device=DEV)
+        d, B = fused.dims, int(fused.x0.shape[0])
+        n, m, l = (getattr(fused.rdims, k).cpu().numpy()[:, None, None]
+                   for k in ("n", "m", "l"))
+        t = rng.integers(0, l + 1)
+        rank_a = rng.integers(0, np.minimum(n, t) + 1)
+        i = lambda size: np.arange(size)[None, :, None]
+        j = lambda size: np.arange(size)[None, None, :]
+        j2 = (i(d.m) < m) & (j(d.n) >= rank_a) & (j(d.n) < n)
+        act = (i(d.n) < n) & (j(d.l) < t)
+        l11 = (i(d.l) < t) & (j(d.ka) < np.minimum(t, n)) & \
+            (j(d.ka) <= i(d.l))
+        for shape, mask in (("J2", j2), ("A_act^T", act), ("L11", l11)):
+            out.append((f"{shape} {phase_name} (padded)", B, *mask.shape[1:],
+                        mask, "padded", True))
+    return out
 
 
 def batched_kernel_cases():
     """(name, B, rows, cols, live columns, kind, on the main path).  The
     main-path shapes are read off the problems' Dims: A_act^T is
-    (n, l), J2 is (m, n)."""
+    (n, l), J2 is (m, n); the fused suites' rows are
+    :func:`_fused_layouts`'s."""
     h, o = HS65_DIMS, ODE_DIMS
     return [
         ("A_act^T hs65", HS65_LANES, h.n, h.l, 2, "leading_live", True),
@@ -487,6 +538,7 @@ def batched_kernel_cases():
         ("gate edge 64x32", 650, 64, 32, 32, "normal", False),
         ("all-zero lanes", 700, 8, 6, 6, "zero_lanes", False),
         ("graded pivots", 2048, 24, 12, 12, "graded", False),
+        *_fused_layouts(),
     ]
 
 
@@ -498,7 +550,9 @@ def _batched_case_matrix(kind, B, rows, cols, live, dtype, seed):
         A_act[:, live:, :] = 0.0
         return torch.tensor(A_act, dtype=dtype, device=DEV).transpose(-1, -2)
     M = rng.normal(size=(B, rows, cols))
-    if kind == "leading_live":
+    if kind == "padded":
+        M = np.where(live, M, 0.0)
+    elif kind == "leading_live":
         M[:, :, live:] = 0.0
     elif kind == "trailing_live":
         M[:, :, :cols - live] = 0.0
@@ -562,6 +616,26 @@ def check_batched_kernel_case(name, B, rows, cols, live, kind, main_path,
         assert packed_err <= 1e-9 and tau_err <= 1e-9, (name, packed_err, tau_err)
     elif kind == "graded":
         assert perm_equal, f"{name} f32: perm differs on graded matrices"
+    if kind == "padded":
+        # a lane's zero rows and columns (padding, masked or inactive)
+        # never lead a live column: its first min(live rows, live
+        # columns) pivots are live columns
+        live_col = torch.as_tensor(live.any(axis=1), device=DEV)
+        k_live = torch.minimum(
+            torch.as_tensor(live.any(axis=2).sum(axis=1), device=DEV),
+            live_col.sum(dim=1))
+        pivoted = torch.gather(live_col, 1, perm)
+        steps = torch.arange(cols, device=DEV)
+        dead = steps >= k_live[:, None]
+        assert bool((pivoted | dead).all()), \
+            f"{name}: a zero column was pivoted before a live one"
+        # float32 ties between live columns may break the other way in
+        # another summation order; where the live pivots agree, the zero
+        # columns' ties (lowest index) give the whole perm
+        live_equal = ((perm == pperm) | dead).all(dim=1)
+        assert bool((lane_equal | ~live_equal).all()), \
+            f"{name}: zero columns tied in another order"
+        assert float(lane_equal.double().mean()) >= 0.999, name
     if kind == "zero_lanes":
         assert float(packed[::3].abs().max()) == 0.0
         assert float(tau[::3].abs().max()) == 0.0
@@ -583,7 +657,8 @@ def check_batched_kernel_case(name, B, rows, cols, live, kind, main_path,
     G = cb.group_size(rows, cols, dtype)
     L = cb.block_lanes(rows, cols, dtype, G)
     bound_ms, bound_by = cpqr_batched_bound(B, rows, cols, dtype)
-    return {"case": name, "shape": [B, rows, cols], "live_columns": live,
+    return {"case": name, "shape": [B, rows, cols],
+            "live_columns": live if kind != "padded" else "per lane",
             "dtype": str(dtype).replace("torch.", ""), "main_path": main_path,
             "strides": list(M.stride()), "G": G, "lanes_per_block": L,
             "shared_bytes": cb._shared_bytes(rows, cols, M.element_size(), G, L),
@@ -1080,8 +1155,6 @@ def batch_lanes_equal_single():
 # ------------------------------ scenario suites (HS suite, hetero batch)
 
 HS_MISSES_REFERENCE = {"hs2", "hs13", "hs16", "hs27"}
-HETERO_FAMILIES = ["hs14", "hs65", "hs26", "hs53", "hs79"]
-HETERO_NEWTON_FAMILIES = HETERO_FAMILIES + ["hs42"]
 HS_MATCH_RTOL = 1e-5
 
 
@@ -1089,48 +1162,18 @@ def _tols_fn(dtype):
     return et.Tols.for_dtype(dtype, DEV)
 
 
-class _PlainOnCard:
-    """Calls of the batched CPQR's plain version on a CUDA tensor (the
-    masked rank-1 loop that ``cpqr_blocked`` runs outside B2's gate)."""
-
-    calls = 0
-
-
-def watch_plain_on_card():
-    plain = cb.cpqr_batched_packed_plain
-
-    def counted(M, *args, **kwargs):
-        if M.is_cuda:
-            _PlainOnCard.calls += 1
-        return plain(M, *args, **kwargs)
-
-    cb.cpqr_batched_packed_plain = counted
-
-
 def _hs_hit(f, fstar):
     return abs(f - fstar) <= HS_MATCH_RTOL * (1 + abs(fstar))
 
 
-def _hs_misses(out, fams, lane=0):
-    return sorted(n for n in fams
-                  if not _hs_hit(float(out[n].f[lane]), fams[n].fstar))
-
-
-def _unsplit(out, fused):
-    """The fused BatchResult back from its per-family split (the slices
-    are contiguous, in order)."""
-    names = list(fused.slices)
-    cat = lambda get: torch.cat([get(out[n]) for n in names])
-    pad = lambda x: torch.nn.functional.pad(x, (0, fused.dims.n - x.shape[1]))
-    return BatchResult(
-        exit_code=cat(lambda r: r.exit_code), x=cat(lambda r: pad(r.x)),
-        f=cat(lambda r: r.f), n_iter=cat(lambda r: r.n_iter),
-        counters=type(out[names[0]].counters)(*(
-            cat(lambda r, i=i: r.counters[i]) for i in range(4))))
+def _hs_misses(per, fams):
+    """Families whose first lane misses f* (``per`` from :func:`_split`)."""
+    return sorted(n for n in per if not _hs_hit(float(per[n][0][0]),
+                                                fams[n].fstar))
 
 
 def _split(res, fused):
-    """A fused BatchResult's first lane of each family: (f, exit code)."""
+    """A fused BatchResult's lanes by family: {name: (f, exit code)}."""
     f = res.f.double().cpu().numpy()
     ec = res.exit_code.cpu().numpy()
     return {n: (f[sl], ec[sl]) for n, sl in fused.slices.items()}
@@ -1146,15 +1189,16 @@ def hs_suite():
     names = problem_names()
     fams = hs_scenario_batch(names, per_family=1, scale=0.0)
     fused = fuse_families(fams)
-    solve = lambda dtype, opts=et.Options(): solve_suite_fused(
-        fams, opts, _tols_fn, dtype=dtype, fused=fused)
+    solve = lambda dtype, opts=et.Options(): solve_batched(
+        fused.fns, fused.x0, fused.dims, opts, _tols_fn(dtype), dtype=dtype,
+        data=fused.data, rdims=fused.rdims)
     solve(torch.float32, et.Options(max_iter=2))     # the phase's warm-up
     rows = {}
     for dtype in (torch.float32, torch.float64):
-        out, stats = _timed_batch(lambda: solve(dtype), warmup=lambda: None)
-        misses = _hs_misses(out, fams)
-        for n in names:
-            assert out[n].x.shape == (1, fams[n].dims.n)
+        res, stats = _timed_batch(lambda: solve(dtype), warmup=lambda: None)
+        assert res.x.shape == (len(names), fused.dims.n)
+        assert bool(torch.all(torch.isfinite(res.x)))
+        misses = _hs_misses(_split(res, fused), fams)
         name = str(dtype).replace("torch.", "")
         rows[name] = {"matched": len(names) - len(misses), "total": len(names),
                       "misses": misses,
@@ -1163,11 +1207,10 @@ def hs_suite():
                       "cpqr_batched_launches": stats["cpqr_batched_launches"],
                       "host_readbacks": stats["host_readbacks"]}
         if dtype == torch.float32:
-            out32, misses32 = out, misses
+            res32, misses32 = res, misses
     assert set(rows["float64"]["misses"]) == HS_MISSES_REFERENCE, rows
 
     # mask-route escalation of the float32 misses and non-converged lanes
-    res32 = _unsplit(out32, fused)
     lanes = res32.exit_code <= 0
     for n in misses32:
         lanes[fused.slices[n]] = True
@@ -1176,9 +1219,7 @@ def hs_suite():
                              res32, data=fused.data, rdims=fused.rdims,
                              mask=lanes)
     torch.cuda.synchronize()
-    per = _split(esc, fused)
-    still = sorted(n for n in names
-                   if not _hs_hit(float(per[n][0][0]), fams[n].fstar))
+    still = _hs_misses(_split(esc, fused), fams)
     rows["float32"].update({"escalated_lanes": int(lanes.sum()),
                             "escalation_seconds": time.time() - t0,
                             "matched_escalated": len(names) - len(still),
@@ -1476,15 +1517,16 @@ def main() -> None:
     emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
     giant, gm = solve_giant_m()
     emit({"giant_m": giant})
-    watch_plain_on_card()
+    cpqr_batched_packed_plain.cuda_calls = 0
     hs_rows = phase("hs_suite", hs_suite)
     hetero_stats, hfams, hfused, hopts = phase("hetero_suite", hetero_suite)
     stats_100k = phase("hetero_100k", hetero_100k)
     newton_stats = phase("hetero_newton", hetero_newton)
     phase("hetero_lanes_equal_bucketed", hetero_lanes_equal_bucketed)
     phase("checkpoint_resume", checkpoint_resume)
-    assert _PlainOnCard.calls == 0, \
-        f"{_PlainOnCard.calls} batched factorizations took the plain version"
+    plain_calls = cpqr_batched_packed_plain.cuda_calls
+    assert plain_calls == 0, \
+        f"{plain_calls} batched factorizations took the plain version"
     if "--profile" in sys.argv:
         emit({"profile_giant_m_a": profile_solve(
             lambda: _giant_solve(gm, "a"))})

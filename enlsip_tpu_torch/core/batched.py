@@ -77,11 +77,8 @@ def lane_functions(fns: Functions, data=None) -> Functions:
         else:
             one = lambda x, p, a: fns.res_trial(x, p)(a)
             res_trial = lambda x, p: (lambda a: torch.func.vmap(one)(x, p, a))
-    # a closure that checks its output (utils/debug.py) is lifted inside
-    # its check: a mapped call cannot branch on a value
-    mapped = lambda f: f.mapped(lift) if hasattr(f, "mapped") else lift(f)
-    return Functions(mapped(fns.res), mapped(fns.jac_res), mapped(fns.cons),
-                     mapped(fns.jac_cons), res_trial)
+    return Functions(lift(fns.res), lift(fns.jac_res), lift(fns.cons),
+                     lift(fns.jac_cons), res_trial)
 
 
 def lane_hessians(fns: Functions, data=None):

@@ -9,7 +9,7 @@ Counterpart of ``enlsip_tpu/core/subproblem.py``:
 * GNSRCH  -> :func:`gn_search_direction`
 * NEWTON  -> :func:`newton_search_direction` (the reference's
   finite-difference HESSF/HESSH are replaced by exact AD Hessian
-  contractions through ``torch.func.hessian``)
+  contractions, ``torch.func.jacrev`` of ``jacrev``)
 
 All matrices live in fixed max-size buffers; the working set enters as
 gathered, masked rows; ranks/dims are per-lane tensors (0-d for one
@@ -431,12 +431,11 @@ def hessian_contractions(res_fn: Callable, cons_fn: Callable,
     """
     rxc = rx.detach()
     lamc = lam_full.detach()
-    # torch.func's forward mode turns a Python float times a 0-d float32
-    # tensor (closures written on x[i], as the HS problems are) into a
-    # float64 tangent, and forward-over-reverse then fails on mixed types;
-    # below float64 the same Hessian is taken reverse-over-reverse.
-    hess = torch.func.hessian if x.dtype == torch.float64 else \
-        (lambda f: torch.func.jacrev(torch.func.jacrev(f)))
+    # Reverse over reverse in every dtype: torch.func's forward mode turns
+    # a Python float times a 0-d float32 tensor (closures written on x[i],
+    # as the HS problems are) into a float64 tangent, and
+    # forward-over-reverse (torch.func.hessian) fails on the mixed types.
+    hess = lambda f: torch.func.jacrev(torch.func.jacrev(f))
     r_mat = hess(lambda z: torch.dot(res_fn(z), rxc))(x)
     c_mat = hess(lambda z: torch.dot(cons_fn(z), lamc))(x)
     return r_mat, c_mat

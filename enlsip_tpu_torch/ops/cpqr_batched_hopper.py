@@ -26,7 +26,9 @@ Beside the kernel:
   arguments;
 * :func:`launch`, the kernel alone into preallocated outputs;
 * ``cpqr_batched_packed.launches``, a plain integer counting kernel
-  launches (one per batch factorization sent to the card).
+  launches (one per batch factorization sent to the card), and
+  ``cpqr_batched_packed_plain.cuda_calls``, the plain version's calls on
+  a CUDA tensor.
 
 Differences from the TPU kernel, all deliberate: no 512-lane blocks and
 no batch padding (lanes past B hold zero and are not written back),
@@ -145,10 +147,16 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
     read back once).  The kernel takes no such argument — on masked
     buffers the steps past the live columns are no-ops — so this is for
     batches beyond the kernel's gate, where skipping them saves most of a
-    long loop."""
+    long loop.
+
+    ``cpqr_batched_packed_plain.cuda_calls`` counts its calls on a CUDA
+    tensor (outside the kernel's gate, or a comparison with the
+    kernel)."""
     B, rows, cols = M.shape
     kmax = min(rows, cols)
     dev, dtype = M.device, M.dtype
+    if M.is_cuda:
+        cpqr_batched_packed_plain.cuda_calls += 1
     A = M.clone(memory_format=torch.contiguous_format)
     perm = torch.arange(cols, device=dev).expand(B, cols).clone()
     taus = torch.zeros((B, kmax), dtype=dtype, device=dev)
@@ -211,6 +219,9 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
         A[:, :, k] = newcol
         taus[:, k] = tau
     return A, taus, perm
+
+
+cpqr_batched_packed_plain.cuda_calls = 0
 
 
 def cpqr_batched_packed(M: torch.Tensor):

@@ -31,8 +31,8 @@ select, so a branch that overflows at another family's point never
 reaches the selected lane's derivatives.  Here every family is evaluated
 on every lane under ``torch.func.vmap`` (no Python branch on a tensor)
 and the outputs are selected with ``torch.where`` — but a select AFTER
-the call alone is not enough.  Reverse mode (``torch.func.hessian`` in
-the Newton direction runs ``jacrev`` inside ``jacfwd``) sends a zero
+the call alone is not enough.  Reverse mode (the Newton direction's
+Hessian is ``jacrev`` of ``jacrev``) sends a zero
 cotangent into each unselected branch; a branch that overflowed at the
 lane's point (hs57's ``exp(-x1 (a - 8))`` is inf in float32 for x1 below
 about -2.6, an ordinary coordinate of another family) turns it into

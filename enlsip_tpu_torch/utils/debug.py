@@ -8,15 +8,13 @@ guarded function checks its output on the host and raises
 non-finite value.  Use it while developing a model and drop it for
 production runs: each check reads a flag back from the device.
 
-Where the check sits.  Under ``torch.func.vmap`` a Python ``if`` on a
-tensor is refused, so the check is never made inside a mapped call.  A
-batch lifts the user's closures onto the lane axis
-(``core/batched.lane_functions``); a guarded function hands that lift
-its inner function (:meth:`_Guarded.mapped`) and checks the (B, ...)
-output of the mapped call, outside it.  Inside the Newton direction's
-Hessian (``torch.func.hessian``, whose arguments are the transforms' own
-tensors) a guarded function returns its value unchecked: those points
-are the iterate, whose values the guard has already checked.
+Where the check sits.  Under ``torch.func`` transforms (the batch's
+``vmap`` over lanes, the Newton direction's Hessians) a Python ``if`` on
+a mapped tensor is refused.  So the check is made beneath the
+transforms: it unwraps the output to the plain tensor that carries its
+values (a mapped output to its (B, ...) values, a differentiated one to
+its primal) and tests that on the host.  Nothing branches on a mapped
+tensor, and the solver's code knows nothing of the guard.
 """
 
 from __future__ import annotations
@@ -29,9 +27,11 @@ import torch
 from ..core.driver import Functions
 
 
-def _transformed(t: torch.Tensor) -> bool:
-    """Whether ``t`` is a value inside a torch.func transform."""
-    return torch._C._functorch.is_functorch_wrapped_tensor(t)
+def _values(t: torch.Tensor) -> torch.Tensor:
+    """The plain tensor beneath every torch.func wrapper of ``t``."""
+    while torch._C._functorch.is_functorch_wrapped_tensor(t):
+        t = torch._C._functorch.get_unwrapped(t)
+    return t
 
 
 class _Guarded:
@@ -43,15 +43,9 @@ class _Guarded:
 
     def __call__(self, *args):
         out = self.fn(*args)
-        if not _transformed(out) and \
-                not bool(torch.all(torch.isfinite(out))):
+        if not bool(torch.all(torch.isfinite(_values(out)))):
             raise FloatingPointError(f"non-finite values from {self.name}(x)")
         return out
-
-    def mapped(self, lift: Callable) -> "_Guarded":
-        """The guard around ``lift(fn)``: the check outside the mapped
-        call."""
-        return _Guarded(lift(self.fn), self.name)
 
 
 def guarded_functions(fns: Functions) -> Functions:

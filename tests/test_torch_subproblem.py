@@ -149,7 +149,7 @@ def test_sub_search_direction_subspace_dims(case, dimA, dimJ2):
 
 @pytest.mark.parametrize("seed,dup", [(0, False), (1, False), (2, True)])
 def test_hessian_contractions_and_newton_direction(seed, dup):
-    """Exact second-order terms through torch.func.hessian against
+    """Exact second-order terms (torch.func reverse over reverse) against
     jax.hessian, then the Newton KKT step built on them."""
     jf, tf, x0, (n, m, q, l) = twin_functions(seed, 5, 8, 3, 1, dup_eq=dup)
     rng = np.random.default_rng(seed)
