@@ -67,6 +67,28 @@ batched factorization's plain version on the card
 (``cpqr_batched_packed_plain.cuda_calls`` stays 0 over these phases).  ``batched_ode_fit``
 lists the lanes that miss before and after escalation.
 
+Lines of the multi-device slice (``parallel/sharding.py``,
+``parallel/rowsharded.py``): the card is one, so two gloo ranks share it
+(correctness and collective counts, not scaling; each rank is a process
+of this script started through ``torch.multiprocessing`` "spawn", joined
+with a deadline) and one NCCL rank takes the NCCL path.
+``sharded_hs65`` splits HS65 x 4096 over the ranks (float32, float64)
+and holds the lanes against the one-process 4096-lane solve: exit codes
+equal, float64 x within 1e-12, match share equal; trips equal on every
+rank, B2 launched on every rank and never its plain version.
+``sharded_hetero_suite`` does the same for the fused five-family batch
+with ``mesh=`` (codes and match rate equal; float32).  The kernel checks
+hold B2 and B3-B6 at the shard shapes these phases give them.
+``rowsharded_giant_m`` solves the
+giant-m problem with 2,500,000 rows a rank in configurations a-d
+(iterations, exit code 10000 and active constraints equal to the one-card
+solve, ||dx|| <= 1e-6 ||x||, each rank launching its configuration's WY
+kernel and no other; collectives and read-backs an iteration, peak memory,
+seconds), then ``tsqr=True`` on (c) and (a) at float64 on 200,000 rows
+(||dx|| <= 1e-8 ||x||, iterations equal).  The ``kernels`` line's B2
+row counts the sharded paths' launches by rank, and B3-B6 rows carry
+``launches_rowsharded_by_rank``.
+
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
 ``torch.profiler``, with the device's busy share and the kernels that
@@ -80,6 +102,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -94,7 +117,7 @@ if not torch.cuda.is_available():
 import numpy as np
 
 import enlsip_tpu_torch as et
-from enlsip_tpu_torch import _device
+from enlsip_tpu_torch import _device, _dist
 from enlsip_tpu_torch.ops import _build
 from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain, q_apply,
                                              unpack_packed)
@@ -113,10 +136,12 @@ from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
 from enlsip_tpu_torch.core.batched import lane_functions, lane_hessians
-from enlsip_tpu_torch.parallel import (escalate_lanes_f64,
+from enlsip_tpu_torch.parallel import (batch_mesh, escalate_lanes_f64,
                                        finalize, fuse_families,
                                        hs_scenario_batch, init_batch,
-                                       run_batch, solve_batched,
+                                       row_mesh, run_batch, solve_batched,
+                                       solve_batched_sharded,
+                                       solve_rowsharded,
                                        solve_suite_batched, solve_suite_fused)
 from enlsip_tpu_torch.problems import get_problem, ode_fit, problem_names
 from enlsip_tpu_torch.utils import load_carry, save_carry
@@ -467,6 +492,8 @@ HS65_DIMS = et.Dims(n=3, m=3, q=0, l=7)
 ODE_DIMS = et.Dims(n=ode_fit.N_PARAMS, m=ode_fit.N_POINTS, q=0,
                    l=2 * ode_fit.N_PARAMS)
 HS65_LANES = 4096
+# ranks of the multi-rank phases (all on the one card)
+RANKS = 2
 ODE_LANES = 10_000
 HETERO_FAMILIES = ["hs14", "hs65", "hs26", "hs53", "hs79"]
 HETERO_NEWTON_FAMILIES = HETERO_FAMILIES + ["hs42"]
@@ -513,6 +540,13 @@ def _fused_layouts():
         for shape, mask in (("J2", j2), ("A_act^T", act), ("L11", l11)):
             out.append((f"{shape} {phase_name} (padded)", B, *mask.shape[1:],
                         mask, "padded", True))
+            if phase_name == "hetero_suite":
+                # each rank's lanes of sharded_hetero_suite
+                per = B // RANKS
+                out += [(f"{shape} {phase_name}, rank {r} of {RANKS} "
+                         "(padded)", per, *mask.shape[1:],
+                         mask[r * per:(r + 1) * per], "padded", True)
+                        for r in range(RANKS)]
     return out
 
 
@@ -525,6 +559,11 @@ def batched_kernel_cases():
     return [
         ("A_act^T hs65", HS65_LANES, h.n, h.l, 2, "leading_live", True),
         ("J2 hs65", HS65_LANES, h.m, h.n, 2, "trailing_live", True),
+        # a rank's lanes of sharded_hs65
+        (f"A_act^T hs65, a rank's {HS65_LANES // RANKS}", HS65_LANES // RANKS,
+         h.n, h.l, 2, "leading_live", True),
+        (f"J2 hs65, a rank's {HS65_LANES // RANKS}", HS65_LANES // RANKS,
+         h.m, h.n, 2, "trailing_live", True),
         ("A_act^T ode_fit", ODE_LANES, o.n, o.l, 4, "leading_live", True),
         # as factor_active hands it over: A_act.transpose(-1, -2), read in
         # place through its strides
@@ -717,9 +756,16 @@ def batched_group_sweep():
 # ------------------------------------------ fused WY kernels (B3-B6)
 
 GIANT_M, GIANT_N, GIANT_L = 5_000_000, 100, 50
+# rows of the float64 giant-m solve, one card and row-sharded
+GIANT64_M = 200_000
 # (name, m, n, k, on the main path)
 WY_CASES = [
     ("giant-m main path", GIANT_M, GIANT_N, GIANT_L, True),
+    ("row-sharded giant-m, a rank's block", GIANT_M // RANKS, GIANT_N,
+     GIANT_L, True),
+    ("giant-m float64 solve", GIANT64_M, GIANT_N, GIANT_L, True),
+    ("row-sharded float64 solve, a rank's block", GIANT64_M // RANKS,
+     GIANT_N, GIANT_L, True),
     ("2M x 100, k = 20", 2_000_000, 100, 20, False),
     ("8192 x 16, k = 5", 8192, 16, 5, False),
     ("ragged 4100 x 7, k = 3", 4100, 7, 3, False),
@@ -843,14 +889,14 @@ GIANT_CONFIGS = {
 }
 
 
-def _giant_solve(gm, config, max_iter=8):
+def _giant_solve(gm, config, max_iter=8, dtype=torch.float32):
     factored, second, tall_qr, _ = GIANT_CONFIGS[config]
     last = {}
     res = core_solve(
         gm.factored if factored else gm.dense, gm.x0, gm.dims,
         et.Options(second_derivatives=second, max_iter=max_iter,
                    tall_qr=tall_qr),
-        et.Tols.for_dtype(torch.float32, DEV), dtype=torch.float32,
+        et.Tols.for_dtype(dtype, DEV), dtype=dtype,
         on_iteration=lambda c: last.update(mask=c.active_mask))
     torch.cuda.synchronize()
     return res, int(last["mask"].sum())
@@ -866,7 +912,7 @@ def solve_giant_m():
     result kept are the last solve's."""
     torch.cuda.empty_cache()
     gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32)
-    out, x_a = [], None
+    out, x_a, kept = [], None, {}
     for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
         _giant_solve(gm, config)                          # warm-up
         torch.cuda.empty_cache()
@@ -908,10 +954,11 @@ def solve_giant_m():
                                    / torch.linalg.norm(x_a))
         assert row["rel_dx_vs_a"] <= 1e-3, row
         out.append(row)
-    return out, gm
+        kept[config] = (x, res.n_iter, res.exit_code, n_active)
+    return out, gm, kept
 
 
-def _wy_kernel_entries(wcases, giant):
+def _wy_kernel_entries(wcases, giant, gloo):
     lines = {"wy_right_apply": 52, "wy_gram_project": 60,
              "wy_gram_project_rowscale": 86, "wy_gram_project_noapply": 118}
     by_kernel = {row["kernel"]: row for row in giant}
@@ -925,6 +972,9 @@ def _wy_kernel_entries(wcases, giant):
             "source": "enlsip_tpu_torch/csrc/wy_gram.cu",
             "replaces": f"enlsip_tpu/ops/pallas_wy.py:{lines[name]}",
             "launches": by_kernel[name]["launches"][name],
+            "launches_rowsharded_by_rank": [
+                r["giant"][by_kernel[name]["config"]]["launches"][name]
+                for r in gloo],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "tolerance": "relative to max |JQ1| (JQ1) and to the norms of G "
                          "and p: float64 vs the plain version 1e-11; float32 "
@@ -1307,7 +1357,7 @@ def _hetero(names, per_family, second_derivatives=False):
                   "exit_codes": _exit_code_counts(codes),
                   "max_memory_allocated_GB":
                       torch.cuda.max_memory_allocated() / 1e9})
-    return stats, fams, fused, opts
+    return stats, fams, fused, opts, out
 
 
 def hetero_suite():
@@ -1325,7 +1375,7 @@ def hetero_newton():
     init_batch / run_batch (the carry holds them); the Hessian
     contractions of the union closures at the final points must be
     finite on every lane."""
-    stats, fams, fused, opts = _hetero(HETERO_NEWTON_FAMILIES, 512, True)
+    stats, fams, fused, opts, _ = _hetero(HETERO_NEWTON_FAMILIES, 512, True)
     tols = _tols_fn(torch.float32)
     carry = init_batch(fused.fns, fused.x0, fused.dims, opts, torch.float32,
                        fused.data, fused.rdims)
@@ -1407,6 +1457,343 @@ def checkpoint_resume():
     assert bool(torch.all(whole.exit_code != 0))
     return {"lanes": int(fused.x0.shape[0]), "stopped_after_trips": 3,
             "bits_equal": same}
+
+
+# ------------------------------- multi-rank phases (batch and row sharding)
+#
+# The card is one: the two-rank phases run two gloo ranks on it (NCCL
+# refuses two ranks on one device), which measures correctness and the
+# collectives' count, not scaling; one phase also runs one NCCL rank so
+# that the NCCL path is taken on the card.  Each rank is a process of
+# this script started through torch.multiprocessing "spawn"; it joins the
+# group through a file under build/, and a rank that raises, or a spawn
+# that outlives RANK_DEADLINE_S, fails the phase.
+
+RANK_DEADLINE_S = 420
+
+
+def _reset_counts():
+    cpqr_batched_packed.launches = 0
+    cpqr_batched_packed_plain.cuda_calls = 0
+    cpqr_hopper.launches = 0
+    wy.reset_launch_counts()
+    _device.reset_readback_count()
+    _dist.reset_collective_count()
+
+
+def _rank_hs65(rank, world):
+    """HS65 x 4096 lanes split over the ranks, float32 and float64, after
+    a warm-up solve of the same lanes; counts set to 0 just before the
+    timed solve."""
+    mesh = batch_mesh()
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        fns, starts = _hs65_batch(dtype, HS65_LANES)
+        tols = et.Tols.for_dtype(dtype, DEV)
+
+        def solve(x0):
+            res = solve_batched_sharded(fns, x0, HS65_DIMS, et.Options(),
+                                        tols, mesh=mesh, dtype=dtype)
+            torch.cuda.synchronize()
+            return res
+
+        solve(starts)
+        _reset_counts()
+        t0 = time.time()
+        res = solve(starts)
+        out[str(dtype).replace("torch.", "")] = {
+            "seconds": time.time() - t0, "trips": run_batch.last_trips,
+            "exit_code": res.exit_code.cpu(), "x": res.x.double().cpu(),
+            "f": res.f.double().cpu(),
+            "cpqr_batched_launches": cpqr_batched_packed.launches,
+            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "collectives": _dist.collective_count(),
+            "host_readbacks": _device.readback_count()}
+    return out
+
+
+def _rank_hetero(rank, world):
+    """The five-family fused float32 batch (2,560 lanes) with mesh=, after
+    a warm-up of 8 lanes a family; counts set to 0 just before."""
+    mesh = batch_mesh()
+    fams = hs_scenario_batch(HETERO_FAMILIES, per_family=512, seed=0)
+    opts = et.Options(max_iter=60)
+    warm = hs_scenario_batch(HETERO_FAMILIES, per_family=8, seed=1)
+    solve_suite_fused(warm, dataclasses.replace(opts, max_iter=2), _tols_fn,
+                      mesh=mesh, dtype=torch.float32)
+    fused = fuse_families(fams)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.time()
+    res = solve_suite_fused(fams, opts, _tols_fn, mesh=mesh,
+                            dtype=torch.float32, fused=fused)
+    torch.cuda.synchronize()
+    return {"seconds": time.time() - t0, "trips": run_batch.last_trips,
+            "cpqr_batched_launches": cpqr_batched_packed.launches,
+            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "collectives": _dist.collective_count(),
+            "lanes": {n: {"exit_code": r.exit_code.cpu(), "x": r.x.cpu(),
+                          "f": r.f.double().cpu()} for n, r in res.items()}}
+
+
+def _rowsharded_solve(gm, config, mesh, tsqr=False, dtype=torch.float32):
+    factored, second, tall_qr, _ = GIANT_CONFIGS[config]
+    carry = solve_rowsharded(
+        gm.factored if factored else gm.dense, gm.x0, gm.dims,
+        et.Options(second_derivatives=second, max_iter=8, tall_qr=tall_qr),
+        et.Tols.for_dtype(dtype, DEV), mesh=mesh, dtype=dtype, tsqr=tsqr)
+    torch.cuda.synchronize()
+    return carry
+
+
+def _rank_giant(rank, world):
+    """This rank's rows of the giant-m problem (the same draw as
+    solve_giant_m), the four configurations: a warm-up, then three
+    solves with the counts set to 0 before each (the last one's kept);
+    then tsqr=True on (c) and (a) at float64 on GIANT64_M rows."""
+    mesh = row_mesh()
+    out = {}
+    torch.cuda.empty_cache()
+    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32,
+                 shard=(rank, world))
+    for config in GIANT_CONFIGS:
+        _rowsharded_solve(gm, config, mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        for _ in range(3):
+            _reset_counts()
+            t0 = time.time()
+            carry = _rowsharded_solve(gm, config, mesh)
+            seconds.append(time.time() - t0)
+            counts = (wy.launch_counts(), _dist.collective_count(),
+                      _device.readback_count(), cpqr_hopper.launches)
+        iters = int(carry.nb_iter)
+        out[config] = {
+            "x": carry.x.double().cpu(), "iterations": iters,
+            "exit_code": int(carry.exit_code),
+            "active_constraints": int(carry.active_mask.sum()),
+            "seconds": seconds, "launches": counts[0],
+            "collectives_per_iteration": counts[1] / max(iters, 1),
+            "host_readbacks_per_iteration": counts[2] / max(iters, 1),
+            "cpqr_hopper_launches": counts[3],
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+    carry = _rowsharded_solve(gm, "c", mesh, tsqr=True)
+    out["c_tsqr"] = {"x": carry.x.double().cpu(),
+                     "iterations": int(carry.nb_iter),
+                     "exit_code": int(carry.exit_code)}
+    del gm
+    torch.cuda.empty_cache()
+    gm64 = giant_m(GIANT64_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float64,
+                   shard=(rank, world))
+    carry = _rowsharded_solve(gm64, "a", mesh, dtype=torch.float64)
+    out["a_float64"] = {"x": carry.x.cpu(), "iterations": int(carry.nb_iter),
+                        "exit_code": int(carry.exit_code)}
+    return out
+
+
+RANK_JOBS = {"hs65": _rank_hs65, "hetero": _rank_hetero,
+             "giant": _rank_giant}
+
+
+def _rank_main(rank, world, backend, init_file, out_dir, jobs):
+    """One rank: join the group, run ``jobs`` in order, save the results."""
+    _dist.init_process_group(backend, f"file://{init_file}", world, rank)
+    out = {job: RANK_JOBS[job](rank, world) for job in jobs}
+    torch.distributed.destroy_process_group()
+    torch.save(out, f"{out_dir}/rank{rank}.pt")
+
+
+def run_ranks(world, backend, jobs):
+    """Start ``world`` ranks on the card, wait for them with a deadline
+    (killing them all past it) and return each rank's results."""
+    tag = f"{backend}{world}_{os.getpid()}_{time.time_ns()}"
+    out_dir = _build.build_dir() / "ranks" / tag
+    out_dir.mkdir(parents=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, backend, str(out_dir / "init"), str(out_dir), jobs))
+        for r in range(world)]
+    for p in procs:
+        p.start()
+    end = time.time() + RANK_DEADLINE_S
+    try:
+        for p in procs:
+            p.join(max(0.0, end - time.time()))
+    finally:
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    assert not late, f"ranks {late} outlived the {RANK_DEADLINE_S} s deadline"
+    codes = [p.exitcode for p in procs]
+    assert all(c == 0 for c in codes), f"rank exit codes {codes}"
+    return [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _hs65_rows(ranks, backend, fails):
+    """Per dtype: the sharded lanes against the one-process solve of all
+    4096 lanes: exit codes equal, float64 x within 1e-12, match share
+    equal."""
+    out = {}
+    D = len(ranks)
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        fns, starts = _hs65_batch(dtype, HS65_LANES)
+        whole = solve_batched(fns, starts, HS65_DIMS, et.Options(),
+                              et.Tols.for_dtype(dtype, DEV), dtype=dtype)
+        mine = ranks[0]["hs65"][name]
+        x1 = whole.x.double().cpu()
+        match = float(np.mean(np.abs(mine["f"].numpy() - HS65_FSTAR) < 1e-4))
+        match1 = float(np.mean(np.abs(whole.f.double().cpu().numpy()
+                                      - HS65_FSTAR) < 1e-4))
+        row = {"backend": backend, "ranks": D, "dtype": name,
+               "lanes": HS65_LANES,
+               "codes_equal_to_one_process": bool(torch.equal(
+                   mine["exit_code"], whole.exit_code.cpu())),
+               "lanes_bits_equal_share": float(
+                   (mine["x"] == x1).all(dim=-1).double().mean()),
+               "max_abs_dx": float((mine["x"] - x1).abs().max()),
+               "match_share": match, "one_process_match_share": match1,
+               "exit_codes": _exit_code_counts(mine["exit_code"].numpy()),
+               "trips_by_rank": [r["hs65"][name]["trips"] for r in ranks],
+               "seconds_by_rank": [r["hs65"][name]["seconds"]
+                                   for r in ranks],
+               "cpqr_batched_launches_by_rank": [
+                   r["hs65"][name]["cpqr_batched_launches"] for r in ranks],
+               "collectives_per_trip": mine["collectives"] / mine["trips"],
+               "host_readbacks_per_trip":
+                   mine["host_readbacks"] / mine["trips"]}
+        ok = row["codes_equal_to_one_process"] and match == match1 \
+            and len(set(row["trips_by_rank"])) == 1 \
+            and (dtype == torch.float32 or row["max_abs_dx"] <= 1e-12)
+        ok = ok and all(
+            r["hs65"][name]["cpqr_batched_launches"] > 0
+            and r["hs65"][name]["plain_calls_on_card"] == 0
+            and torch.equal(r["hs65"][name]["x"], mine["x"]) for r in ranks)
+        if not ok:
+            fails.append(("sharded_hs65", row))
+        out[f"{backend}_{D}_{name}"] = row
+    return out
+
+
+def _hetero_row(gloo, hetero_out, fails):
+    """The fused five-family batch with mesh= against the one-process
+    fused solve of all 2,560 lanes (the hetero_suite phase's): exit codes
+    equal, match rate equal."""
+    D = len(gloo)
+    mine = gloo[0]["hetero"]["lanes"]
+    codes_eq = all(torch.equal(mine[n]["exit_code"],
+                               hetero_out[n].exit_code.cpu()) for n in mine)
+    dx = max(float((mine[n]["x"] - hetero_out[n].x.cpu()).abs().max())
+             for n in mine)
+    bits = float(np.mean(np.concatenate([
+        (mine[n]["x"] == hetero_out[n].x.cpu()).all(dim=-1).numpy()
+        for n in mine])))
+    fstar = {n: get_problem(n)[1] for n in HETERO_FAMILIES}
+    hit = lambda f, n: np.abs(f - fstar[n]) < 1e-3 * max(1.0, abs(fstar[n]))
+    match = float(np.mean(np.concatenate(
+        [hit(mine[n]["f"].numpy(), n) for n in mine])))
+    match1 = float(np.mean(np.concatenate(
+        [hit(hetero_out[n].f.double().cpu().numpy(), n) for n in mine])))
+    h0 = gloo[0]["hetero"]
+    row = {"backend": "gloo", "ranks": D, "dtype": "float32",
+           "lanes": sum(int(v["x"].shape[0]) for v in mine.values()),
+           "codes_equal_to_one_process": codes_eq,
+           "lanes_bits_equal_share": bits, "max_abs_dx": dx,
+           "match_rate": match, "one_process_match_rate": match1,
+           "trips_by_rank": [r["hetero"]["trips"] for r in gloo],
+           "seconds_by_rank": [r["hetero"]["seconds"] for r in gloo],
+           "cpqr_batched_launches_by_rank": [
+               r["hetero"]["cpqr_batched_launches"] for r in gloo],
+           "collectives_per_trip": h0["collectives"] / h0["trips"]}
+    ok = codes_eq and match == match1 and match >= 0.99 \
+        and len(set(row["trips_by_rank"])) == 1 \
+        and all(r["hetero"]["cpqr_batched_launches"] > 0
+                and r["hetero"]["plain_calls_on_card"] == 0 for r in gloo)
+    if not ok:
+        fails.append(("sharded_hetero_suite", row))
+    return row
+
+
+def _giant_rows(gloo, giant_kept, one64, fails):
+    rows = []
+    for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
+        x1, it1, ec1, act1 = giant_kept[config]
+        g0 = gloo[0]["giant"][config]
+        row = {"config": config, "kernel": kernel, "ranks": len(gloo),
+               "backend": "gloo", "rows_per_rank": GIANT_M // len(gloo),
+               "iterations": g0["iterations"], "one_card_iterations": it1,
+               "exit_code": g0["exit_code"], "one_card_exit_code": ec1,
+               "active_constraints": g0["active_constraints"],
+               "rel_dx_vs_one_card": float(torch.linalg.norm(
+                   g0["x"] - x1.cpu()) / torch.linalg.norm(x1.cpu())),
+               "by_rank": [{
+                   **{k: v for k, v in r["giant"][config].items()
+                      if k not in ("x", "seconds")},
+                   "seconds_per_solve": statistics.median(
+                       r["giant"][config]["seconds"]),
+                   "seconds_per_solve_min": min(r["giant"][config]["seconds"]),
+                   "seconds_per_solve_max": max(r["giant"][config]["seconds"])}
+                   for r in gloo]}
+        ok = (row["iterations"], row["exit_code"]) == (it1, ec1) \
+            and row["exit_code"] == 10000 \
+            and row["active_constraints"] == act1 >= 5 \
+            and row["rel_dx_vs_one_card"] <= 1e-6
+        for r in gloo:
+            g = r["giant"][config]
+            ok = ok and torch.equal(g["x"], g0["x"]) \
+                and g["launches"][kernel] > 0 \
+                and all(v == 0 for k, v in g["launches"].items()
+                        if k != kernel)
+        if not ok:
+            fails.append(("rowsharded_giant_m", row))
+        rows.append(row)
+    ct, c = gloo[0]["giant"]["c_tsqr"], gloo[0]["giant"]["c"]
+    tsqr = {"config": "c", "tsqr": True, "iterations": ct["iterations"],
+            "exit_code": ct["exit_code"],
+            "bits_equal_to_tsqr_false": bool(torch.equal(ct["x"], c["x"]))}
+    if (tsqr["iterations"], tsqr["exit_code"]) != (c["iterations"],
+                                                   c["exit_code"]):
+        fails.append(("rowsharded_giant_m tsqr", tsqr))
+    a64, x64 = gloo[0]["giant"]["a_float64"], one64.x.cpu()
+    f64row = {"config": "a", "dtype": "float64", "m": GIANT64_M,
+              "iterations": a64["iterations"],
+              "one_card_iterations": one64.n_iter,
+              "exit_code": a64["exit_code"],
+              "one_card_exit_code": one64.exit_code,
+              "rel_dx_vs_one_card": float(torch.linalg.norm(a64["x"] - x64)
+                                          / torch.linalg.norm(x64))}
+    if f64row["iterations"] != one64.n_iter or \
+            f64row["rel_dx_vs_one_card"] > 1e-8:
+        fails.append(("rowsharded_giant_m float64", f64row))
+    return rows, tsqr, f64row
+
+
+def multi_rank_phases(hetero_out, giant_kept):
+    """sharded_hs65 (two gloo ranks, then one NCCL rank),
+    sharded_hetero_suite and rowsharded_giant_m (two gloo ranks), each
+    held against one-process / one-card solves of the same inputs.  Every
+    line is printed before a failed check fails the script."""
+    t0 = time.time()
+    gm64 = giant_m(GIANT64_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float64)
+    one64, _ = _giant_solve(gm64, "a", dtype=torch.float64)
+    del gm64
+    torch.cuda.empty_cache()
+    gloo = run_ranks(RANKS, "gloo", ["hs65", "hetero", "giant"])
+    nccl = run_ranks(1, "nccl", ["hs65"])
+    fails = []
+    hs = {**_hs65_rows(gloo, "gloo", fails), **_hs65_rows(nccl, "nccl", fails)}
+    emit({"sharded_hs65": hs, "phase_seconds": time.time() - t0})
+    het = _hetero_row(gloo, hetero_out, fails)
+    emit({"sharded_hetero_suite": het})
+    rows, tsqr, f64row = _giant_rows(gloo, giant_kept, one64, fails)
+    emit({"rowsharded_giant_m": rows, "tsqr_c": tsqr, "float64": f64row,
+          "phase_seconds": time.time() - t0})
+    assert not fails, fails
+    return hs, het, gloo
 
 
 def profile_solve(solve, kernel=None):
@@ -1515,11 +1902,12 @@ def main() -> None:
     ode_stats = batched_ode_fit()
     emit({"batched_ode_fit": ode_stats})
     emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
-    giant, gm = solve_giant_m()
+    giant, gm, giant_kept = solve_giant_m()
     emit({"giant_m": giant})
     cpqr_batched_packed_plain.cuda_calls = 0
     hs_rows = phase("hs_suite", hs_suite)
-    hetero_stats, hfams, hfused, hopts = phase("hetero_suite", hetero_suite)
+    hetero_stats, hfams, hfused, hopts, hetero_out = phase("hetero_suite",
+                                                          hetero_suite)
     stats_100k = phase("hetero_100k", hetero_100k)
     newton_stats = phase("hetero_newton", hetero_newton)
     phase("hetero_lanes_equal_bucketed", hetero_lanes_equal_bucketed)
@@ -1527,6 +1915,7 @@ def main() -> None:
     plain_calls = cpqr_batched_packed_plain.cuda_calls
     assert plain_calls == 0, \
         f"{plain_calls} batched factorizations took the plain version"
+    sharded_hs, sharded_het, gloo = multi_rank_phases(hetero_out, giant_kept)
     if "--profile" in sys.argv:
         emit({"profile_giant_m_a": profile_solve(
             lambda: _giant_solve(gm, "a"))})
@@ -1555,7 +1944,11 @@ def main() -> None:
         "hs_suite_float32": hs_rows["float32"]["cpqr_batched_launches"],
         "hetero_suite": hetero_stats["cpqr_batched_launches"],
         "hetero_100k": stats_100k["cpqr_batched_launches"],
-        "hetero_newton": newton_stats["cpqr_batched_launches"]}
+        "hetero_newton": newton_stats["cpqr_batched_launches"],
+        **{f"sharded_hs65_{k}_rank{r}": n for k, row in sharded_hs.items()
+           for r, n in enumerate(row["cpqr_batched_launches_by_rank"])},
+        **{f"sharded_hetero_suite_rank{r}": n for r, n in
+           enumerate(sharded_het["cpqr_batched_launches_by_rank"])}}
     assert all(v > 0 for v in launches_by_path.values()), \
         ("a batched path never launched cpqr_batched_packed", launches_by_path)
     launches_batched = sum(launches_by_path.values())
@@ -1586,7 +1979,7 @@ def main() -> None:
         "l2_copy_GBps": l2_rate,
         "cases": cases}, _batched_kernel_entry(bcases, launches_batched,
                                               launches_by_path),
-        *_wy_kernel_entries(wcases, giant)]})
+        *_wy_kernel_entries(wcases, giant, gloo)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ Entry points — ``solve(CnlsModel)``, ``core_solve``, and in
 ``enlsip_tpu_torch.parallel`` the batched ``solve_batched`` /
 ``solve_multistart`` (B same-shaped instances in lockstep) — run on the
 CUDA device unless the caller passes
-``device="cpu"``; with no device and no such argument they raise.
+``device="cpu"``; with no device and no such argument they raise.  The
+multi-device solves in ``enlsip_tpu_torch.parallel``
+(``solve_batched_sharded``, ``solve_rowsharded``) run one process a rank
+on ``torch.distributed`` and take the rank's device from their mesh.
 
 A single solve whose residual Jacobian is tall (rows >= 32 n and rows >=
 4096) takes the two-stage factorizations of ``ops/tsqr.py`` and the

@@ -44,12 +44,23 @@ def norm(a):
 
 
 def mv(A, x):
-    """Lane-wise ``A @ x`` for ``A`` (..., r, c), ``x`` (..., c)."""
+    """Lane-wise ``A @ x`` for ``A`` (..., r, c), ``x`` (..., c).
+
+    With lane axes it is a product and a sum, not a batched matrix
+    product: the card's batched product picks its kernel, and with it the
+    summation order, by the number of lanes, so a lane's bits would
+    depend on how many lanes share its batch (a sharded rank's half of
+    the lanes would round otherwise than the whole batch)."""
+    if A.ndim > 2:
+        return torch.sum(A * x[..., None, :], dim=-1)
     return (A @ x[..., None])[..., 0]
 
 
 def mtv(A, x):
-    """Lane-wise ``A^T @ x`` for ``A`` (..., r, c), ``x`` (..., r)."""
+    """Lane-wise ``A^T @ x`` for ``A`` (..., r, c), ``x`` (..., r); with
+    lane axes a product and a sum, as :func:`mv`."""
+    if A.ndim > 2:
+        return torch.sum(A * x[..., :, None], dim=-2)
     return (A.transpose(-1, -2) @ x[..., None])[..., 0]
 
 

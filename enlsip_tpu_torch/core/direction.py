@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .._device import to_host
+from .._dist import rows_sum
 from .._lanes import ex, put, take1
 from ..ops.qr import prefix_norm, solve_upper
 from .subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
@@ -307,7 +308,7 @@ def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
                               rdims=None) -> AnalysResult:
     """ANALYS.  The method code is read back and ONE of the three
     branches (GN, subspace, Newton) is evaluated on the host's choice."""
-    rx_sum = torch.sum(rx * rx, dim=-1)
+    rx_sum = rows_sum(torch.sum(rx * rx, dim=-1))
     rankA, rankJ2 = gn.rankA, gn.rankJ2
 
     method_code, beta = analysis_decide(

@@ -45,6 +45,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import resolve_device, to_host
+from .._dist import rows_dot, rows_sum
 from .._lanes import cond, dot, ex, mtv, norm, take, take1
 from ..ops.qr import pseudo_rank
 from .direction import search_direction_analysis
@@ -116,10 +117,11 @@ def _jac_base(fns: Functions):
 
 
 def _grad_f(fns: Functions, J, rx):
-    """gf = J^T rx; factored mode: base^T (s * rx)."""
+    """gf = J^T rx; factored mode: base^T (s * rx).  (Row-sharded: this
+    rank's rows' part summed over the ranks.)"""
     if fns.jac_base is not None:
-        return mtv(fns.jac_base(), J[..., 0] * rx)
-    return mtv(J, rx)
+        return rows_sum(mtv(fns.jac_base(), J[..., 0] * rx))
+    return rows_sum(mtv(J, rx))
 
 
 class WorkingSetRound(NamedTuple):
@@ -165,6 +167,7 @@ class _Tall(NamedTuple):
     tall_qr: str = "cholqr"
     jac_base: Optional[torch.Tensor] = None
     elide_jq1: bool = False
+    tsqr_axis: Optional[str] = None
 
 
 def _factor_and_gn(mask, A, cx, rx, J, gf, dims: Dims, scaling: bool,
@@ -257,7 +260,7 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
         stationary = stationary & ((torch.sum(inact, dim=-1) == 0) | inact_ok)
         sigma_min, lam_abs_max = minmax_lagrangian_mult(
             lam, act.valid, t, rd.q, scaling, act.diag_scale)
-        factor = torch.where(t == 1, 1.0 + dot(rx, rx), lam_abs_max)
+        factor = torch.where(t == 1, 1.0 + rows_dot(rx, rx), lam_abs_max)
         neg_block = (t > rd.q) & (sigma_min < tols.eps_rel * factor)
         deadlock = (stationary & neg_block & ~full_rank & (s2 >= 0) &
                     stall_hint)
@@ -308,7 +311,7 @@ def _working_set_round(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
     factored-Jacobian mode, see ``gn_search_direction``."""
     scaling = opts.scaling
     eps_rank = tols.eps_rank
-    tall = _Tall(opts.tall_qr, jac_base, elide_jq1)
+    tall = _Tall(opts.tall_qr, jac_base, elide_jq1, opts.tsqr_axis)
     view, t, act, F_A, rankA, F_L11 = _factor_stage1(mask, A, cx, gf, dims,
                                                      scaling, eps_rank, lanes)
     r1 = _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims, scaling,
@@ -359,7 +362,7 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
     host = (lambda v: i(v)) if lead else (lambda v: v)
     prev = PrevIter(
-        x=x0, rx_sum=dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
+        x=x0, rx_sum=rows_dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
         t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
         progress=f(0.0), predicted_reduction=f(0.0),
         rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
@@ -396,7 +399,7 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     which is also its unrolled first iteration)."""
     x, rx, cx, J, A, gf = (carry.x, carry.rx, carry.cx, carry.J, carry.A,
                            carry.gf)
-    rx_sum_start = dot(rx, rx)
+    rx_sum_start = rows_dot(rx, rx)
     cx_sum_start = _cx_sq_sum(cx, dims, rdims)
 
     # --- EVSCAL + WRKSET ------------------------------------------------
@@ -459,7 +462,7 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     x_new = x + ex(sl.alpha) * ana.p
     rx_new, J_new, cx_new, A_new, counters = new_point(fns, x_new, counters)
     gf_new = _grad_f(fns, J_new, rx_new)
-    rx_sum_new = dot(rx_new, rx_new)
+    rx_sum_new = rows_dot(rx_new, rx_new)
     restart_new = ana.error_code < 0
 
     sigma_min, lam_abs_max = minmax_lagrangian_mult(
@@ -560,7 +563,7 @@ def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
             carry = iterate_body(carry, fns, dims, opts, tols)
             if on_iteration is not None:
                 on_iteration(carry)
-        f = float(dot(carry.rx, carry.rx))
+        f = float(rows_dot(carry.rx, carry.rx))
     return SolveResult(exit_code=carry.exit_code, x=carry.x, f=f,
                        n_iter=carry.nb_iter, display=carry.display,
                        n_display=carry.n_display, counters=carry.counters,

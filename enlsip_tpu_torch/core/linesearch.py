@@ -34,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._dist import rows_dot, rows_sums, split_dots
 from .._lanes import cond, dot, ex, mv, norm, take, while_loop
 from .types import Counters, Dims, PrevIter, acc as _acc
 
@@ -54,7 +55,7 @@ def psi(x, alpha, p, w, mask, res_at, cons_fn, counters: Counters):
     w = _acc(w)
     counters = counters.bump(res=1, cons=1)
     pen = torch.where(mask | (cxn < 0.0), w * cxn * cxn, torch.zeros_like(cxn))
-    return 0.5 * (dot(rxn, rxn) + torch.sum(pen, dim=-1)), counters
+    return 0.5 * (rows_dot(rxn, rxn) + torch.sum(pen, dim=-1)), counters
 
 
 def _min_part(mask, cx, scaled):
@@ -73,8 +74,9 @@ def concat_v(rx, cx, w, mask, dims: Dims):
 
 def linesearch_v1(JpAp, cx, w, mask, dims: Dims):
     """LINC2's v1 scaling: constraint rows of [Jp; Ap] get sqrt(w)
-    (active) or the min-part rule (inactive)."""
-    m = dims.m
+    (active) or the min-part rule (inactive).  (The residual rows are
+    the buffer's own: a row-sharded solve holds m / D of them.)"""
+    m = JpAp.shape[-1] - cx.shape[-1]
     JpAp, cx, w = _acc(JpAp), _acc(cx), _acc(w)
     return torch.cat([JpAp[..., :m],
                       _min_part(mask, cx, torch.sqrt(w) * JpAp[..., m:])],
@@ -173,17 +175,21 @@ def _two_roots(b, c, d, a, x_min):
     return alpha, beta
 
 
-def minrm(v0, v1, v2, x_min, alpha_min, alpha_max, lanes=None):
+def minrm(v0, v1, v2, x_min, alpha_min, alpha_max, lanes=None, rows=None):
     """MINRM: minimize the quartic s(a) = 1/2 ||v0 + v1 a + v2 a^2||^2
     analytically (Cardano) or, where the model is flat, by safeguarded
     Newton–Raphson; returns the best two local minimizers clamped to
-    [alpha_min, alpha_max] with values."""
+    [alpha_min, alpha_max] with values.  ``rows``: the v's leading
+    residual rows (row-sharded inside a row scope; see
+    ``_dist.split_dots``)."""
     tiny = _tiny(v0)
-    c0 = 0.5 * dot(v0, v0)
-    c1 = dot(v0, v1)
-    c2 = dot(v0, v2) + 0.5 * dot(v1, v1)
-    c3 = dot(v1, v2)
-    normv2 = dot(v2, v2)
+    d00, d01, d02, d11, d12, d22 = split_dots(
+        [(v0, v0), (v0, v1), (v0, v2), (v1, v1), (v1, v2), (v2, v2)], rows)
+    c0 = 0.5 * d00
+    c1 = d01
+    c2 = d02 + 0.5 * d11
+    c3 = d12
+    normv2 = d22
     c4 = 0.5 * normv2
     sc = (c0, c1, c2, c3, c4)
     dsc = (c1, 2 * c2, 3 * c3, 4 * c4)
@@ -305,7 +311,7 @@ def linesearch_constrained(x, alpha0, p, rx, cx, JpAp, w, mask, psi0, dpsi0,
 
     x_min = torch.where(diff_psi0 >= 0, alpha_k, zero)
     a_kp1, pk = take_beta(*minrm(v0, v1, v2, x_min, alpha_min, alpha_max,
-                                 lanes), alpha_k)
+                                 lanes, rx.shape[-1]), alpha_k)
 
     # UPDATE
     alpha_km2, psi_km2 = zero, psi0
@@ -370,7 +376,7 @@ def linesearch_constrained(x, alpha0, p, rx, cx, JpAp, w, mask, psi0, dpsi0,
                 v2k, cnt = quartic_v2(alpha_k, counters)
                 a_n, pk_n = take_beta(
                     *minrm(v0, v1, v2k, alpha_k, alpha_min, alpha_max,
-                           _both(on3, redo)), alpha_k)
+                           _both(on3, redo), rx.shape[-1]), alpha_k)
                 return a_n, pk_n, zero, psi0, cnt
 
             def three_point():
@@ -508,7 +514,7 @@ def compute_steplength(res_trial, cons_fn, x, rx, J, cx, A, act, view, t, p,
         wa = _acc(take(w, active_global))
         cxa = _acc(take(cx, active_global))
         zero_s = torch.zeros_like(wa)
-        psi0 = 0.5 * (dot(_acc(rx), _acc(rx)) +
+        psi0 = 0.5 * (rows_dot(_acc(rx), _acc(rx)) +
                       torch.sum(torch.where(act.valid, wa * cxa * cxa,
                                             zero_s), dim=-1))
 
@@ -558,8 +564,8 @@ def compute_steplength(res_trial, cons_fn, x, rx, J, cx, A, act, view, t, p,
             atwa = torch.sum(torch.where(act.valid, wa * aAp ** 2, zero_s),
                              dim=-1)
             Jp_a, rx_a = _acc(Jp), _acc(rx)
-            pred = uppbound * (-2.0 * dot(Jp_a, rx_a)
-                               - uppbound * dot(Jp_a, Jp_a)
+            Jp_rx, Jp_Jp = rows_sums(dot(Jp_a, rx_a), dot(Jp_a, Jp_a))
+            pred = uppbound * (-2.0 * Jp_rx - uppbound * Jp_Jp
                                + (2.0 - uppbound ** 2) * atwa)
             x_new = x + ex(alpha.to(dtype)) * p
             rx_new = _acc(res_at(alpha))
@@ -568,7 +574,7 @@ def compute_steplength(res_trial, cons_fn, x, rx, J, cx, A, act, view, t, p,
             cxna = take(cx_new, active_global)
             whsum = torch.sum(torch.where(act.valid, wa * cxna * cxna,
                                           zero_s), dim=-1)
-            progress = 2 * psi0 - dot(rx_new, rx_new) - whsum
+            progress = 2 * psi0 - rows_dot(rx_new, rx_new) - whsum
             iau = torch.where(
                 (index_alpha_upp != -1) &
                 ((alpha - _acc(alpha_upp)).abs() > 0.1), -1, index_alpha_upp)

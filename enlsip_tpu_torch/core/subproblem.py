@@ -24,6 +24,16 @@ and, with one WY panel and 2-D operands, the fused apply + Gram +
 projection kernels of ``ops/wy_hopper.py``; the residual Jacobian may
 then also arrive factored as ``diag(s) @ base`` (``jac_base``), in which
 case the dense J never exists.
+
+Row-sharded solves (``parallel/rowsharded.py``, inside the row scope of
+``_dist.py``): J, rx, JQ1 and the J2 buffer hold this rank's rows and
+the n-space state is replicated.  Every contraction over the rows is a
+local product plus one ``all_reduce`` (``rows_sum``); the tall gate reads
+the global row count; J2 takes the distributed pivot loop
+(``ops/rows_qr.py``) or the row-sharded two-stage forms of
+``ops/tsqr.py``, whose Q^T applications return the d-vector replicated.
+The fused WY kernels run on the rank's block where their gate, a
+function of the block's shape, admits it.
 """
 
 from __future__ import annotations
@@ -32,10 +42,13 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .._dist import (global_rows, row_mesh_in_scope, rows_dot, rows_sum,
+                     rows_sums)
 from .._lanes import dot, ex, mtv, mv, put, take, take_rows
 from ..ops.blocked_qr import (CPQRF, _panels, cpqr_blocked, q_apply,
                               qt_apply, right_q_apply)
 from ..ops.qr import invperm, pseudo_rank, solve_lower, solve_upper
+from ..ops.rows_qr import RowCPQRF, cpqr_rows, qt_apply_rows
 from ..ops.tsqr import (CholQRF, TSQRF, cholqr_cpqr,
                         qt_apply_cholqr_from_projection, qt_apply_tsqr,
                         tsqr_cpqr)
@@ -92,8 +105,9 @@ class FactorJ2(NamedTuple):
     implicit; ``d = Q3^T (-J1 p1 - rx)`` is computed per use."""
 
     # CPQRF: R (min(m,n), n), V (m, kp), T, perm, diag; or one of the
-    # two-stage forms of a tall panel (ops/tsqr.CholQRF, TSQRF), which
-    # expose R, perm and diag with the same shapes
+    # two-stage forms of a tall panel (ops/tsqr.CholQRF, TSQRF) or the
+    # row-sharded pivot loop (ops/rows_qr.RowCPQRF), which expose R, perm
+    # and diag with the same shapes
     f: CPQRF
 
     @property
@@ -112,7 +126,7 @@ class FactorJ2(NamedTuple):
 def _gram_jtrx(f: CholQRF, rx: torch.Tensor) -> torch.Tensor:
     """JQ1^T rx: kept by the factorization when the fused kernel produced
     it, else one stream of the tall buffer."""
-    return f.jtrx if f.jtrx is not None else mtv(f.M, rx)
+    return f.jtrx if f.jtrx is not None else rows_sum(mtv(f.M, rx))
 
 
 def j2_transform_d(F_J2: FactorJ2, JQ1: torch.Tensor, p1n: torch.Tensor,
@@ -142,12 +156,14 @@ def j2_transform_d(F_J2: FactorJ2, JQ1: torch.Tensor, p1n: torch.Tensor,
         jtrx = _gram_jtrx(f, rx)
         Gp = mv(f.G, p1n)
         y = -Gp - jtrx
-        v_sq = torch.clamp(dot(p1n, Gp) + 2.0 * dot(p1n, jtrx) + dot(rx, rx),
-                           min=0.0)
+        v_sq = torch.clamp(dot(p1n, Gp) + 2.0 * dot(p1n, jtrx)
+                           + rows_dot(rx, rx), min=0.0)
         return qt_apply_cholqr_from_projection(f, y, v_sq)
     v = -mv(JQ1, p1n) - rx
     if isinstance(f, TSQRF):
         return qt_apply_tsqr(f, v)
+    if isinstance(f, RowCPQRF):
+        return qt_apply_rows(f, v)
     return qt_apply(f, v)
 
 
@@ -282,7 +298,7 @@ def second_mult_estimate(F_A: FactorA, JQ1: torch.Tensor, rx: torch.Tensor,
             Jp_gn = J[..., 0] * mv(jac_base, p_gn)
         else:
             Jp_gn = mv(J, p_gn)
-        b_raw = mtv(JQ1, rx + Jp_gn)
+        b_raw = rows_sum(mtv(JQ1, rx + Jp_gn))
     b_full = torch.where(cols, b_raw, torch.zeros_like(b_raw))  # (n,)
     v = solve_upper(F_A.R[..., :ka, :ka], b_full[..., :ka], prankA)
     lam = _slots_to_constraints(v, F_A, l)
@@ -342,7 +358,8 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
                         act: ActiveConstraint, F_A: FactorA,
                         F_L11: FactorL11, rankA, t, eps_rank, dims: Dims,
                         rdims=None, tall_qr: str = "cholqr", jac_base=None,
-                        elide_jq1: bool = False) -> GNResult:
+                        elide_jq1: bool = False,
+                        tsqr_axis=None) -> GNResult:
     """GNSRCH: J Q1, the pivoted QR of its live columns, SUBDIR.
 
     ``jac_base`` (factored-Jacobian mode, ``Functions.jac_rowscale`` /
@@ -360,12 +377,21 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
     which reads at most the leading n entries plus the complement norm.
 
     ``tall_qr``: "cholqr" or "qr", the two-stage factorization a tall
-    panel takes (``Options.tall_qr``)."""
+    panel takes (``Options.tall_qr``).  ``tsqr_axis`` (row-sharded solves,
+    ``Options.tsqr_axis``): when set, the two-stage factorization whatever
+    the height; only whether it is set is read, the axis is the row
+    scope's.
+
+    Inside a row scope the tall gate reads the GLOBAL row count, as the
+    JAX package's does on its global J; the fused kernels' gate reads
+    the rank's block."""
     n = dims.n
     rd = rdims_or(rdims, dims)
     rows = jac_base.shape[-2] if jac_base is not None else J.shape[-2]
     live_cols = torch.arange(n, device=J.device) >= ex(rankA)
-    tall = rows >= 32 * n and rows >= 4096
+    tall = global_rows(rows) >= 32 * n and global_rows(rows) >= 4096
+    two_stage = tall or tsqr_axis is not None
+    sharded = row_mesh_in_scope()
     # Fused single-pass path (one tall solve, cholqr, one WY panel): the
     # apply, the CholeskyQR Gram and the JQ1^T rx projection are ONE pass
     # of the kernel over J (or the base) instead of five (m, n)-class
@@ -394,22 +420,27 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
         JQ1 = right_q_apply(F_A.f, J)
     # Only n - rankA columns are live; skip the no-op steps.
     zero = torch.zeros((), dtype=JQ1.dtype, device=JQ1.device)
-    if tall and tall_qr == "cholqr":
+    if two_stage and tall_qr == "cholqr":
         # Gram + shifted Cholesky, implicit Q.  JQ1 is passed UNMASKED;
         # dead columns are zeroed on the (n, n) Gram instead (the same
-        # bits, and no masked (m, n) copy).
+        # bits, and no masked (m, n) copy).  Row-sharded: one all_reduce
+        # of the Gram and projection inside.
         F_J2 = FactorJ2(f=cholqr_cpqr(JQ1, nsteps=n - rankA,
                                       col_live=live_cols, gram=gram,
                                       jtrx=jtrx))
-    elif tall:
-        # Householder first stage: thin QR of the whole buffer + pivoted
-        # QR of its R.
-        J2buf = torch.where(live_cols[..., None, :], JQ1, zero)
-        F_J2 = FactorJ2(f=tsqr_cpqr(J2buf, nsteps=n - rankA))
     else:
         J2buf = torch.where(live_cols[..., None, :], JQ1, zero)
-        F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
-                                       device=J.device))
+        if two_stage:
+            # Householder first stage: thin QR of the whole buffer (of each
+            # rank's block) + pivoted QR of its R (of the ranks' stack).
+            F_J2 = FactorJ2(f=tsqr_cpqr(
+                J2buf, nsteps=n - rankA,
+                axis=None if sharded is None else sharded.axis))
+        elif sharded is not None:
+            F_J2 = FactorJ2(f=cpqr_rows(J2buf, n - rankA, sharded))
+        else:
+            F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
+                                           device=J.device))
     # Semantic diag length (pseudo_rank's sqrt(len) tolerance factor).
     len_diag = torch.minimum(rd.n - rankA, torch.as_tensor(rd.m,
                                                            device=J.device))
@@ -476,6 +507,7 @@ def newton_search_direction(res_fn: Callable, cons_fn: Callable,
         r_mat, c_mat = hessian_contractions(res_fn, cons_fn, x, rx, lam_full)
     else:
         r_mat, c_mat = hess(x, rx, lam_full)
+    r_mat = rows_sum(r_mat)     # sum_k r_k hess(r_k) over the rank's rows
     Gamma = r_mat - c_mat
     E = right_q_apply(F_A.f, qt_apply(F_A.f, Gamma))
     # Permute leading-t coordinates by F_L11.p when t > rankA.
@@ -494,9 +526,11 @@ def newton_search_direction(res_fn: Callable, cons_fn: Callable,
     J2 = torch.where(in2[..., None, :], JQ1,
                      torch.zeros((), dtype=dtype, device=dev))
     J2t = J2.transpose(-1, -2)
-    W = E_used + J2t @ J2                     # W22 on the (>=rankA) block
-    W21p1 = mv(E_used, p1n) + mv(J2t, mv(JQ1, p1n))
-    dfull = torch.where(in2, -(W21p1) - mv(J2t, rx), torch.zeros_like(p1n))
+    J2tJ2 = rows_sum(J2t @ J2)
+    J2tJp1, J2trx = rows_sums(mv(J2t, mv(JQ1, p1n)), mv(J2t, rx))
+    W = E_used + J2tJ2                        # W22 on the (>=rankA) block
+    W21p1 = mv(E_used, p1n) + J2tJp1
+    dfull = torch.where(in2, -(W21p1) - J2trx, torch.zeros_like(p1n))
 
     sW = 0.5 * (W + W.transpose(-1, -2))
     blk = in2[..., :, None] & in2[..., None, :]

@@ -104,6 +104,11 @@ class Options:
     # stays below about eps^(-1/2)); "qr" = a Householder thin QR first
     # stage (slower on a very tall buffer, unconditionally stable).
     tall_qr: str = "cholqr"
+    # Row-sharded solves only (parallel/rowsharded.solve_rowsharded with
+    # tsqr=True sets it to the row mesh's axis name): J2 always takes the
+    # two-stage factorization of ops/tsqr.py ("cholqr" as above, "qr" the
+    # TSQR of the ranks' blocks), whatever its height.
+    tsqr_axis: str | None = None
 
 
 _TORCH_PRECISION = {"float32": "highest", "tensorfloat32": "high",

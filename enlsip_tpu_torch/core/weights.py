@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from .._dist import rows_sums
 from .._lanes import cond, dot, ex, put, take, take1, while_loop
 from .types import Dims, acc as _acc
 
@@ -191,8 +192,7 @@ def penalty_weight_update(w_old: torch.Tensor, Jp: torch.Tensor,
     in_dimA = (slot < ex(dimA)) & valid
     zero = torch.zeros_like(active_Ap)
 
-    Jp_rx = dot(Jp, rx)
-    nrm_Jp2 = dot(Jp, Jp)
+    Jp_rx, nrm_Jp2 = rows_sums(dot(Jp, rx), dot(Jp, Jp))
     nrm_Ap = torch.sqrt(torch.sum(torch.where(valid, active_Ap * active_Ap,
                                               zero), dim=-1))
     cx_act = take(cx, active_global)
@@ -235,9 +235,11 @@ def penalty_weight_update(w_old: torch.Tensor, Jp: torch.Tensor,
                              _acc(zero))
     BtwA2 = _acc(fcx) * torch.sum(cons_terms, dim=-1)
     Jp_a, rx_a = _acc(Jp), _acc(rx)
-    dpsi0 = BtwA2 + dot(Jp_a, rx_a)
+    Jp_rx_a, Jp_rx_abs = rows_sums(dot(Jp_a, rx_a),
+                                   torch.sum((Jp_a * rx_a).abs(), dim=-1))
+    dpsi0 = BtwA2 + Jp_rx_a
     # Roundoff scale of dpsi0: summand magnitudes BEFORE cancellation,
     # constraint term gated by the same fcx that gates dpsi0's.
-    dpsi_scale = (torch.sum((Jp_a * rx_a).abs(), dim=-1) +
+    dpsi_scale = (Jp_rx_abs +
                   _acc(fcx) * torch.sum(cons_terms.abs(), dim=-1))
     return w, dpsi0, dpsi_scale, K_new

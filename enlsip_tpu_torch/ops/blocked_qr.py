@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import resolve_device, to_host
+from .._lanes import mtv, mv
 
 # WY panel width for T/apply blocking.
 NB = 128
@@ -89,15 +90,20 @@ def _householder_col(col: torch.Tensor, k: int):
     return v, tau, torch.where(safe, beta, alpha)
 
 
-def _panel_T(V: torch.Tensor, taus: torch.Tensor, nb: int) -> torch.Tensor:
+def _panel_T(V: torch.Tensor, taus: torch.Tensor, nb: int,
+             sum_rows=None) -> torch.Tensor:
     """Per-panel compact-WY T factors: T_p = U_p^{-1},
     U_p = diag(1/tau_p) + strict_upper(V_p^T V_p).  ``V`` (..., rows, kp)
-    and ``taus`` (..., kp) may carry leading lane axes."""
+    and ``taus`` (..., kp) may carry leading lane axes.  ``sum_rows``:
+    for reflectors whose rows are sharded over ranks, the reduction that
+    adds the ranks' partial V_p^T V_p."""
     *lead, rows, kp = V.shape
     n_panels = kp // nb
     Vp = V.reshape(*lead, rows, n_panels, nb).movedim(-2, -3)  # (np, rows, nb)
     tp = taus.reshape(*lead, n_panels, nb)
     VtV = Vp.transpose(-1, -2) @ Vp
+    if sum_rows is not None:
+        VtV = sum_rows(VtV)
     live = tp > 0
     safe_tau = torch.where(live, tp, torch.ones_like(tp))
     U = torch.triu(VtV, 1) + torch.diag_embed(1.0 / safe_tau)
@@ -321,13 +327,16 @@ def _panels(f: CPQRF):
 
 def _left_apply(f: CPQRF, x: torch.Tensor, transpose: bool) -> torch.Tensor:
     vec = x.ndim == f.V.ndim - 1
-    if vec:
-        x = x[..., None]
     panels = _panels(f)
     for Vi, Ti in (panels if transpose else reversed(panels)):
         Tm = Ti.transpose(-1, -2) if transpose else Ti
-        x = x - Vi @ (Tm @ (Vi.transpose(-1, -2) @ x))
-    return x[..., 0] if vec else x
+        if vec:
+            # lane-wise products whose rounding does not follow the
+            # number of lanes (see _lanes.mv)
+            x = x - mv(Vi, mv(Tm, mtv(Vi, x)))
+        else:
+            x = x - Vi @ (Tm @ (Vi.transpose(-1, -2) @ x))
+    return x
 
 
 def qt_apply(f: CPQRF, x: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,15 @@ Both preserve the column norms of M in their first-stage factor, so the
 second stage pivots and ranks exactly like the direct factorization and
 R, perm and diag have the direct factorization's shapes and meaning.
 
-The row-sharded form of the reference (``axis`` = a mesh axis: local
-factors per shard, one gather) is not part of this module yet;
-:func:`tsqr_cpqr` raises ``NotImplementedError`` when an axis is passed.
+Row-sharded forms, inside the row scope of ``_dist.py`` (the giant-m
+solve of ``parallel/rowsharded.py``, every rank holding m / D rows of M):
+:func:`cholqr_cpqr` sums the ranks' (n, n) Grams, with M^T rx when it is
+given, by ONE ``all_reduce`` a factorization, the one psum GSPMD gives
+the JAX package; :func:`tsqr_cpqr` with ``axis`` factors each rank's
+block by a thin QR and the (D n, n) stack of the local R factors by one
+replicated pivoted QR (one exact gather).  The Q^T applications return
+the compact replicated embedding (leading coefficients, then the norm of
+the rest) and reduce their projections the same way.
 
 Every function takes leading lane axes on its tensors like the rest of
 the package (``torch.linalg.cholesky_ex``, ``solve_triangular`` and
@@ -37,15 +43,17 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .._dist import (all_reduce, gather_slots, row_mesh_in_scope, rows_sum)
 from .._lanes import dot, ex, mtv
 from .blocked_qr import CPQRF, cpqr_blocked, qt_apply
 
 
 class TSQRF(NamedTuple):
     """Thin QR + pivoted QR of its R: ``qloc`` (m, n) the thin Q, ``f2``
-    the CPQR of the (n, n) R.  ``axis`` is kept for the reference's
-    row-sharded form and is always ``None`` here.  Exposes R / perm /
-    diag with the shapes the direct CPQRF has for m >= n."""
+    the CPQR of the (n, n) R.  With ``axis`` (the row-sharded form),
+    ``qloc`` is this rank's (m / D, n) block and ``f2`` the CPQR of the
+    (D n, n) stack of the ranks' R factors.  Exposes R / perm / diag with
+    the shapes the direct CPQRF has for m >= n."""
 
     qloc: torch.Tensor
     f2: CPQRF
@@ -64,17 +72,39 @@ class TSQRF(NamedTuple):
         return self.f2.diag[..., :self.qloc.shape[-1]]
 
 
+def _axis_mesh():
+    mesh = row_mesh_in_scope()
+    if mesh is None:
+        raise ValueError(
+            "tsqr over a row axis requires an ambient row mesh; run the "
+            "solve inside _dist.row_scope(mesh), as "
+            "parallel.rowsharded.solve_rowsharded does")
+    return mesh
+
+
 def tsqr_cpqr(M: torch.Tensor, nsteps, axis: Optional[str] = None) -> TSQRF:
     """Column-pivoted QR of a tall ``M`` (m, n), m >= n: one thin
     ``torch.linalg.qr`` of the whole matrix, then the pivoted QR of its
     (n, n) R, with ``nsteps`` bounding the pivot steps (live columns).
-    Column norms, hence pivoting and rank decisions, are those of M."""
-    if axis is not None:
-        raise NotImplementedError(
-            "tsqr_cpqr: the row-sharded form (axis) is not part of this "
-            "package yet; pass axis=None")
+    Column norms, hence pivoting and rank decisions, are those of M.
+
+    ``axis``: the row-sharded form over the row scope's mesh; ``M``
+    is this rank's block (m / D >= n rows), factored by a local thin QR,
+    and the (D n, n) stack of the ranks' R factors, whose columns have
+    the whole matrix's norms, by one replicated pivoted QR."""
+    if axis is None:
+        q, r = torch.linalg.qr(M, mode="reduced")
+        return TSQRF(qloc=q, f2=cpqr_blocked(r, nsteps=nsteps,
+                                             device=M.device))
+    mesh = _axis_mesh()
+    rows, n = M.shape
+    if rows < n:
+        raise ValueError(f"tsqr needs m / D >= n row panels, got {rows} "
+                         f"rows a rank for n = {n}")
     q, r = torch.linalg.qr(M, mode="reduced")
-    return TSQRF(qloc=q, f2=cpqr_blocked(r, nsteps=nsteps, device=M.device))
+    stack = gather_slots(r, mesh).reshape(mesh.size * n, n)
+    return TSQRF(qloc=q, f2=cpqr_blocked(stack, nsteps=nsteps,
+                                         device=M.device), axis=axis)
 
 
 class CholQRF(NamedTuple):
@@ -136,7 +166,9 @@ def cholqr_cpqr(M: torch.Tensor, nsteps, col_live=None, gram=None,
     kernel emits it with the apply); ``M`` is then not read and may be a
     (0, n) placeholder.  ``col_live`` (n,) bool: columns outside it are
     dead; masking happens on the (n, n) Gram, so ``M`` is passed
-    unmasked.  ``jtrx``: M^T rx to keep beside the Gram.
+    unmasked.  ``jtrx``: M^T rx to keep beside the Gram.  Inside a row
+    scope, ``M``, ``gram`` and ``jtrx`` are this rank's rows' parts, and
+    one ``all_reduce`` sums the Gram (with ``jtrx`` when given).
 
     At float64 a CholeskyQR2-style refinement runs on the Gram alone:
     the implicit Q becomes M R1^{-1} R2^{-1} with R2 the Cholesky factor
@@ -148,6 +180,12 @@ def cholqr_cpqr(M: torch.Tensor, nsteps, col_live=None, gram=None,
     n = M.shape[-1]
     dtype, dev = M.dtype, M.device
     G_raw = (M.transpose(-1, -2) @ M) if gram is None else gram   # (n, n)
+    if row_mesh_in_scope() is not None:
+        if jtrx is None:
+            G_raw = rows_sum(G_raw)
+        else:
+            red = rows_sum(torch.cat([G_raw.reshape(-1), jtrx]))
+            G_raw, jtrx = red[:n * n].reshape(n, n), red[n * n:]
     G = G_raw
     zero = torch.zeros((), dtype=dtype, device=dev)
     if col_live is not None:
@@ -208,7 +246,11 @@ def qt_apply_cholqr(f: CholQRF, v: torch.Tensor) -> torch.Tensor:
     """Q^T v with the (m,) embedding contract of :func:`qt_apply_tsqr`:
     the leading n entries are the stage-2 coefficients, entry [n] carries
     the orthogonal-complement norm (sum(out**2) == ||v||**2)."""
-    return _qt_cholqr(f, mtv(f.M, v), dot(v, v))
+    y, v_sq = mtv(f.M, v), dot(v, v)
+    if row_mesh_in_scope() is not None:
+        red = rows_sum(torch.cat([y, v_sq[None]]))
+        y, v_sq = red[:-1], red[-1]
+    return _qt_cholqr(f, y, v_sq)
 
 
 def _qt_cholqr(f: CholQRF, y: torch.Tensor, v_sq: torch.Tensor
@@ -216,8 +258,9 @@ def _qt_cholqr(f: CholQRF, y: torch.Tensor, v_sq: torch.Tensor
     m, n = f.M.shape[-2:]
     # Elided mode: M is a (0, n) placeholder.  Every consumer of the
     # returned embedding reads at most the leading n entries plus the
-    # complement norm at [n], so a compact (n + 1,) buffer is exact.
-    if m == 0:
+    # complement norm at [n], so a compact (n + 1,) buffer is exact; the
+    # row-sharded form (M a rank's rows) returns the same.
+    if m == 0 or row_mesh_in_scope() is not None:
         m = n + 1
     # R1^T w = y on the live columns; dead rows/cols of R1 are zero, so
     # solve on a unit-diagonal-patched copy and re-zero.
@@ -245,7 +288,24 @@ def qt_apply_tsqr(f: TSQRF, v: torch.Tensor) -> torch.Tensor:
     coefficients in the two-stage basis (exact for every consumer: the
     triangular solves and prefix norms all read < n leading entries) and
     whose entry [n] carries the orthogonal-complement norm, so
-    ``sum(out**2) == ||v||**2`` like the direct transform."""
+    ``sum(out**2) == ||v||**2`` like the direct transform.
+
+    Row-sharded form (``f.axis``): ``v`` is this rank's rows; the ranks'
+    local projections, stacked, and ||v||^2 come from one ``all_reduce``,
+    and the result is the replicated (D n + 1,) embedding of the stacked
+    basis (entries in (n, D n) differ from the direct factorization's by
+    a rotation of the complement; no consumer reads them one by one)."""
+    if f.axis is not None:
+        mesh = _axis_mesh()
+        n = f.qloc.shape[-1]
+        dn = mesh.size * n
+        buf = torch.zeros(dn + 1, dtype=v.dtype, device=v.device)
+        buf[mesh.rank * n:(mesh.rank + 1) * n] = mtv(f.qloc, v)
+        buf[dn] = dot(v, v)
+        buf = all_reduce(buf, mesh)
+        w = buf[:dn]
+        rest2 = torch.clamp(buf[dn] - dot(w, w), min=0.0)
+        return torch.cat([qt_apply(f.f2, w), torch.sqrt(rest2)[None]])
     m, n = f.qloc.shape[-2:]
     w = mtv(f.qloc, v)                                 # (n,)
     u = qt_apply(f.f2, w)

@@ -16,7 +16,9 @@ launch each of the batched CPQR kernel (``ops/cpqr_batched_hopper.py``).
 Differences from the JAX package, all deliberate: the loop is a host
 loop that reads "is any lane still running" back once per
 ``check_every`` trips and the clock every trip, so there is no adaptive
-chunk schedule (that answered XLA dispatch cost).  As there, the
+chunk schedule (that answered XLA dispatch cost).  With a ``mesh`` (the
+batch-sharded solves of ``parallel/sharding.py``) that check is one
+``all_reduce`` over the ranks, so every rank runs the same trips.  As there, the
 factored-Jacobian hook (``Functions.jac_rowscale`` / ``jac_base``) is a
 single-solve feature and ``init_batch`` rejects it.
 """
@@ -30,7 +32,8 @@ import torch
 from torch.utils import _pytree as pytree
 
 from .._device import resolve_device
-from .._lanes import dot, lane_any
+from .._dist import Mesh, mesh_any
+from .._lanes import dot
 from ..core.batched import (batched_guarded_body, has_data, lane_functions,
                             lane_hessians)
 from ..core.driver import Functions, init_carry
@@ -93,7 +96,8 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
               tols: Tols, max_steps: Optional[int] = None, data=None,
               rdims=None, check_every: int = 1,
               time_limit: Optional[float] = None,
-              start_time: Optional[float] = None) -> Carry:
+              start_time: Optional[float] = None,
+              mesh: Optional[Mesh] = None) -> Carry:
     """Advance every unconverged lane until all lanes terminate (or
     ``max_steps`` loop trips).
 
@@ -105,6 +109,13 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     ``time_limit`` (seconds since ``start_time``): the loop reads the
     clock before every trip; once the limit has run out, the lanes still
     running exit -11.
+
+    ``mesh``: this rank's lanes are a slice of a batch sharded over the
+    mesh's ranks; the check becomes "is any lane of ANY rank running" (one
+    ``all_reduce``), so every rank runs the same trips as the reference's
+    global loop does and ``run_batch.last_trips`` is global.  A rank
+    whose own lanes have all terminated skips the body (it would change
+    nothing: terminated lanes are frozen).
 
     Cap invariant: all lanes step in lockstep (a lane's nb_iter only
     advances while its exit_code == 0 and it records), so loop trips
@@ -121,15 +132,19 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     cap = max_steps if max_steps is not None else opts.max_iter + 2
     start = time.time() if start_time is None else start_time
     trips = 0
-    while trips < cap and lane_any(carry.exit_code == 0):
+    while trips < cap:
+        some, mine = mesh_any(carry.exit_code == 0, mesh)
+        if not some:
+            break
         for _ in range(check_every):
             if time_limit is not None and time.time() - start >= time_limit:
                 ec = carry.exit_code
                 run_batch.last_trips = trips
                 return carry._replace(exit_code=torch.where(
                     ec == 0, torch.full_like(ec, -11), ec))
-            carry = batched_guarded_body(carry, lfns, dims, opts, tols,
-                                         rdims, hess)
+            if mine:
+                carry = batched_guarded_body(carry, lfns, dims, opts, tols,
+                                             rdims, hess)
             trips += 1
     run_batch.last_trips = trips
     return carry

@@ -60,7 +60,7 @@ from .._device import resolve_device
 from ..core.driver import Functions
 from ..core.types import Dims, Options, RDims
 from .batch import BatchResult, solve_batched
-from .suite import _no_mesh
+from .sharding import solve_batched_sharded
 
 PAD_CX = 1e4  # inert padding constraint value (>> EVADD's delta = 0.1)
 
@@ -169,14 +169,25 @@ def solve_suite_fused(families: dict, opts: Options, tols_fn,
     JAX package it is the jit cache key; PyTorch compiles nothing here,
     so reusing one only saves rebuilding the closures.
     ``escalate_f64``: re-solve the lanes with exit code <= 0 at float64
-    (``parallel.batch.escalate_lanes_f64``, which carries their RDims)."""
-    _no_mesh(mesh)
-    if fused is None:
-        fused = fuse_families(families, device)
-    res = solve_batched(fused.fns, fused.x0, fused.dims, opts,
-                        tols_fn(dtype), dtype=dtype, data=fused.data,
-                        rdims=fused.rdims, escalate_f64=escalate_f64,
-                        device=device)
+    (``parallel.batch.escalate_lanes_f64``, which carries their RDims).
+    ``mesh`` (``parallel.sharding.batch_mesh``): the fused batch axis is
+    sharded over its ranks, on the mesh's device."""
+    if escalate_f64 and mesh is not None:
+        raise ValueError(
+            "escalate_f64 is not wired through the sharded path; run the "
+            "mesh solve, then escalate flagged lanes explicitly via "
+            "solve_batched(..., escalate_mask=...) (ADVICE r4)")
+    if mesh is None:
+        fused = fused or fuse_families(families, device)
+        res = solve_batched(fused.fns, fused.x0, fused.dims, opts,
+                            tols_fn(dtype), dtype=dtype, data=fused.data,
+                            rdims=fused.rdims, escalate_f64=escalate_f64,
+                            device=device)
+    else:
+        fused = fused or fuse_families(families, mesh.device)
+        res = solve_batched_sharded(fused.fns, fused.x0, fused.dims, opts,
+                                    tols_fn(dtype), mesh=mesh, dtype=dtype,
+                                    data=fused.data, rdims=fused.rdims)
     out = {}
     for name, sl in fused.slices.items():
         nf = families[name].dims.n

@@ -26,6 +26,7 @@ from ..models.model import (CnlsModel, _ad_jac, build_constraint_functions,
                             total_nb_constraints)
 from ..problems import get_problem
 from .batch import solve_batched
+from .sharding import solve_batched_sharded
 
 
 class FamilySpec(NamedTuple):
@@ -35,21 +36,20 @@ class FamilySpec(NamedTuple):
     fstar: Optional[float] = None
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device batches are not ported yet (ROADMAP queue A, "
-            "item A13); call without mesh=")
-
-
 def solve_suite_batched(families: dict, opts: Options, tols_fn,
                         mesh=None, dtype=torch.float32,
                         device=None) -> dict:
     """Solve every family's batch; returns {name: BatchResult}.
 
     ``tols_fn(dtype) -> Tols``.  Runs on ``device`` (default: the card;
-    raises if there is none)."""
-    _no_mesh(mesh)
+    raises if there is none).  ``mesh`` (``parallel.sharding.batch_mesh``)
+    shards each family's batch axis over its ranks, on the mesh's
+    device."""
+    if mesh is not None:
+        return {name: solve_batched_sharded(spec.fns, spec.x0_batch,
+                                            spec.dims, opts, tols_fn(dtype),
+                                            mesh=mesh, dtype=dtype)
+                for name, spec in families.items()}
     return {name: solve_batched(spec.fns, spec.x0_batch, spec.dims, opts,
                                 tols_fn(dtype), dtype=dtype, device=device)
             for name, spec in families.items()}

@@ -30,6 +30,8 @@ from typing import NamedTuple
 
 import torch
 
+import dataclasses
+
 from .._device import resolve_device
 from ..core.driver import Functions
 from ..core.types import Dims
@@ -100,11 +102,17 @@ def giant_m_from_arrays(W, Y, xtrue, blo, l: int, dtype=torch.float32,
 
 
 def giant_m(m: int = 5_000_000, n: int = 100, l: int = 50, seed: int = 3,
-            dtype=torch.float32, device=None) -> GiantM:
+            dtype=torch.float32, device=None, shard=None) -> GiantM:
     """The benchmark's problem at (m, n, l), data drawn on ``device``
     from ``torch.Generator(device).manual_seed(seed)``:
     W ~ N(0, 1/n), xtrue ~ N(0, 1), Y = phi(W xtrue) + 0.01 N(0, 1),
-    ``blo = xtrue[:5] + 0.2`` (fewer where ``l - 1 < 5``)."""
+    ``blo = xtrue[:5] + 0.2`` (fewer where ``l - 1 < 5``).
+
+    ``shard=(rank, D)``: rank ``rank``'s rows of the same draw for the
+    row-sharded solve (``parallel/rowsharded.py``): rows
+    [rank m / D, (rank + 1) m / D) of W and Y, the closures over them and
+    ``dims.m`` the global m.  The whole draw is made on the device and
+    freed once the block is copied out."""
     dev = resolve_device(device)
     g = torch.Generator(device=dev).manual_seed(seed)
     W = torch.randn((m, n), generator=g, dtype=dtype, device=dev)
@@ -113,5 +121,13 @@ def giant_m(m: int = 5_000_000, n: int = 100, l: int = 50, seed: int = 3,
     z = W @ xtrue
     Y = z + NONLIN * torch.tanh(z)
     Y += 0.01 * torch.randn(m, generator=g, dtype=dtype, device=dev)
-    return giant_m_from_arrays(W, Y, xtrue, xtrue[:min(5, l - 1)] + 0.2, l,
-                               dtype, dev)
+    blo = xtrue[:min(5, l - 1)] + 0.2
+    if shard is None:
+        return giant_m_from_arrays(W, Y, xtrue, blo, l, dtype, dev)
+    rank, D = shard
+    if m % D:
+        raise ValueError(f"m = {m} rows do not divide over {D} ranks")
+    sl = slice(rank * (m // D), (rank + 1) * (m // D))
+    W, Y = W[sl].clone(), Y[sl].clone()
+    gm = giant_m_from_arrays(W, Y, xtrue, blo, l, dtype, dev)
+    return gm._replace(dims=dataclasses.replace(gm.dims, m=m))

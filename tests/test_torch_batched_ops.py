@@ -41,6 +41,33 @@ def test_batched_q_applies_equal_per_lane(rows, cols, apply):
         assert float((tb.q_apply(f, tb.qt_apply(f, x)) - x).abs().max()) <= 1e-12
 
 
+@pytest.mark.parametrize("device", ["cpu", pytest.param(
+    "cuda", marks=pytest.mark.gpu)])
+@pytest.mark.parametrize("op", ["mv", "mtv", "qt_vec", "q_vec"])
+def test_lane_products_do_not_follow_the_batch_size(op, device):
+    """A lane's product is the same to the bit whether its batch holds
+    4096 lanes or half of them (on the card a batched matrix product picks
+    its kernel by the number of lanes, which would make a sharded rank's
+    lanes round otherwise than the whole batch).  The shapes are HS65's."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    lanes, half = 4096, 2048
+    A = torch.tensor(rng.normal(size=(lanes, 3, 7)), device=device)
+    v = {"mv": torch.tensor(rng.normal(size=(lanes, 7)), device=device),
+         "mtv": torch.tensor(rng.normal(size=(lanes, 3)), device=device)}
+    if op in ("mv", "mtv"):
+        fn = lambda sl: getattr(_lanes, op)(A[sl], v[op][sl])
+    else:
+        f = tb.cpqr_blocked(A.transpose(-1, -2).contiguous(), device=device)
+        apply = tb.qt_apply if op == "qt_vec" else tb.q_apply
+        fn = lambda sl: apply(type(f)(*(
+            None if a is None else a[sl] for a in f)), v["mv"][sl])
+    whole = fn(slice(None))
+    for sl in (slice(0, half), slice(half, lanes)):
+        assert torch.equal(fn(sl), whole[sl])
+
+
 @pytest.mark.parametrize("upper", [True, False])
 def test_masked_triangular_solves_with_per_lane_k(upper):
     rng = np.random.default_rng(2)

@@ -135,13 +135,26 @@ def test_bucketed_suite_on_the_suite_batch_inputs():
 
 
 def test_mesh_is_not_ported_yet(suites):
-    tfams = suites[0]
-    with pytest.raises(NotImplementedError, match="A13"):
-        solve_suite_batched(tfams, Options(), _tols, mesh=object(),
-                            device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        solve_suite_fused(tfams, Options(), _tols, mesh=object(),
-                          device="cpu")
+    """(Named when ``mesh=`` still raised.)  The suites take a mesh now:
+    on the one-rank mesh of a process without ``torch.distributed`` they
+    give the unsharded results to the bit, and ``escalate_f64`` with a
+    mesh raises the reference's ValueError.  The multi-rank runs are in
+    tests/test_torch_sharding.py."""
+    from enlsip_tpu_torch.parallel import batch_mesh
+    tfams, buck, tfs, fused = suites
+    mesh = batch_mesh(device="cpu")
+    for plain, on_mesh in (
+            (buck, solve_suite_batched(tfams, Options(), _tols, mesh=mesh,
+                                       dtype=F64)),
+            (fused, solve_suite_fused(tfams, Options(), _tols, mesh=mesh,
+                                      dtype=F64, fused=tfs))):
+        for name in tfams:
+            assert torch.equal(on_mesh[name].x, plain[name].x), name
+            assert torch.equal(on_mesh[name].exit_code,
+                               plain[name].exit_code), name
+    with pytest.raises(ValueError, match="escalate_f64"):
+        solve_suite_fused(tfams, Options(), _tols, mesh=mesh,
+                          escalate_f64=True)
 
 
 # ------------------------------------------- fused against bucketed

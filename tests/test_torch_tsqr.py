@@ -251,8 +251,20 @@ def test_tsqr_cpqr_matches_reference():
 
 
 def test_tsqr_row_sharded_axis_is_not_implemented():
-    with pytest.raises(NotImplementedError, match="axis"):
-        tq.tsqr_cpqr(tt(_j2_like()), nsteps=N_COLS, axis="rows")
+    """(Named when the row-sharded form raised NotImplementedError.)  It
+    needs the ambient row scope of its axis, as the reference's needs an
+    ambient mesh: without one it raises ValueError; on a one-rank row
+    mesh it is the single-device factorization.  The multi-rank form is
+    held in tests/test_torch_rowsharded.py."""
+    from enlsip_tpu_torch import _dist
+    M = tt(_j2_like())
+    with pytest.raises(ValueError, match="ambient row mesh"):
+        tq.tsqr_cpqr(M, nsteps=N_COLS, axis="rows")
+    mesh = _dist.make_mesh(device="cpu", axis="rows")
+    with _dist.row_scope(mesh):
+        f = tq.tsqr_cpqr(M, nsteps=N_COLS, axis="rows")
+    one = tq.tsqr_cpqr(M, nsteps=N_COLS)
+    assert torch.equal(f.perm, one.perm) and torch.equal(f.R, one.R)
 
 
 @pytest.mark.parametrize("kind", ["cholqr", "tsqr"])
