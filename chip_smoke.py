@@ -117,13 +117,14 @@ if not torch.cuda.is_available():
 import numpy as np
 
 import enlsip_tpu_torch as et
-from enlsip_tpu_torch import _device, _dist
+from enlsip_tpu_torch import _device, _dist, _graph, _lanes
 from enlsip_tpu_torch.ops import _build
 from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain, q_apply,
                                              unpack_packed)
 from enlsip_tpu_torch.core.driver import Functions
 from enlsip_tpu_torch.core.driver import solve as core_solve
 from enlsip_tpu_torch.models.model import (_model_functions,
+                                           _solve_functions,
                                            build_constraint_functions,
                                            total_nb_constraints)
 from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
@@ -179,6 +180,15 @@ OSBORNE2_FSTAR_REFERENCE = 0.4558771931598639
 CHAINED_WOOD20_FSTAR = 474.2585640745832
 
 
+def reset_launch_counts() -> None:
+    """Every kernel's launch count to 0: the wrappers' own integers
+    (launches made now) and the device counters (launches that replays
+    of captured graphs make)."""
+    cpqr_hopper.launches = 0
+    cpqr_batched_packed.launches = 0
+    wy.reset_launch_counts()          # the WY counts and every device slot
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -187,6 +197,7 @@ def phase(name, fn):
     """Run one phase, print its result as ``{name: result}`` with the
     phase's wall seconds beside it, and return the result (a tuple's
     first member is the printed part)."""
+    _graph.clear_graph_cache()    # a phase's graphs hold their pools
     t0 = time.time()
     out = fn()
     emit({name: out[0] if isinstance(out, tuple) else out,
@@ -890,6 +901,10 @@ GIANT_CONFIGS = {
 
 
 def _giant_solve(gm, config, max_iter=8, dtype=torch.float32):
+    """One solve of a giant-m configuration.  The working set at the end
+    is read through ``on_iteration``, so the graph path runs in chunks of
+    one iteration (one replay and one read-back each; the ``device_loop``
+    line times the one-replay solve of (a))."""
     factored, second, tall_qr, _ = GIANT_CONFIGS[config]
     last = {}
     res = core_solve(
@@ -897,7 +912,7 @@ def _giant_solve(gm, config, max_iter=8, dtype=torch.float32):
         et.Options(second_derivatives=second, max_iter=max_iter,
                    tall_qr=tall_qr),
         et.Tols.for_dtype(dtype, DEV), dtype=dtype,
-        on_iteration=lambda c: last.update(mask=c.active_mask))
+        on_iteration=lambda c: last.update(mask=c.active_mask.clone()))
     torch.cuda.synchronize()
     return res, int(last["mask"].sum())
 
@@ -905,22 +920,22 @@ def _giant_solve(gm, config, max_iter=8, dtype=torch.float32):
 def solve_giant_m():
     """The giant-m problem of the reference benchmark (5,000,000 x 100,
     50 inequalities, float32, max_iter = 8, data drawn on the card) in
-    the four configurations, each after one warm-up solve.  A
+    the four configurations, each after one warm-up solve (which captures
+    the configuration's graph).  A
     configuration is solved three times (the host's clock varies between
     solves: the median and the range are kept), with every count set to
     0 just before each solve and read just after; the counts and the
     result kept are the last solve's."""
-    torch.cuda.empty_cache()
+    _graph.clear_graph_cache()
     gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32)
     out, x_a, kept = [], None, {}
     for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
+        _graph.clear_graph_cache()      # the last configuration's pools
         _giant_solve(gm, config)                          # warm-up
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         seconds = []
         for _ in range(3):
-            wy.reset_launch_counts()
-            cpqr_hopper.launches = 0
+            reset_launch_counts()
             _device.reset_readback_count()
             t0 = time.time()
             res, n_active = _giant_solve(gm, config)
@@ -990,6 +1005,210 @@ def _wy_kernel_entries(wcases, giant, gloo):
     return entries
 
 
+# --------------------------------------------- kernels inside a graph
+
+def graph_kernel_cases():
+    """B1 (both routes) and B2 at the main paths' shapes launched inside
+    a captured graph, in the body of a conditional node as the solve
+    launches them, with the step count in device memory; the graph is
+    replayed twice and each replay held against the eager launch on the
+    same inputs (equal bits)."""
+    rows = []
+
+    def case(name, fn, inputs):
+        eager = fn(*inputs)
+        first = [t.clone() for t in _graph.run(("kernel_case", name), lambda *a: _lanes.cond(
+            a[0].reshape(-1)[0] == a[0].reshape(-1)[0], lambda: fn(*a),
+            lambda: fn(*a)), inputs, DEV)]
+        second = _graph.run(("kernel_case", name), None, inputs, DEV)
+        torch.cuda.synchronize()
+        eq = [all(torch.equal(a, b) for a, b in zip(eager, r))
+              for r in (first, second)]
+        rows.append({"case": name, "replays_equal_eager": eq})
+        assert all(eq), (name, eq)
+
+    for dtype in (torch.float32, torch.float64):
+        dt = str(dtype).replace("torch.", "")
+        M = _case_matrix("normal", 1000, 998, 998, dtype, seed=7)
+        for route, fn in B1_ROUTES.items():
+            for steps in (998, 2):
+                case(f"B1 {route} 1000x998 {steps} steps {dt}", fn,
+                     (M, torch.full((), steps, dtype=torch.int32, device=DEV)))
+        J2 = _case_matrix("trailing_live", 1998, 1000, 2, dtype, seed=8)
+        case(f"B1 dispatch 1998x1000 2 steps {dt}", cpqr_hopper,
+             (J2, torch.full((), 2, dtype=torch.int64, device=DEV)))
+        for B, r, c in ((10_000, 40, 10), (HS65_LANES, 3, 7),
+                        (HS65_LANES, 3, 3)):
+            Mb = torch.randn(B, r, c, dtype=dtype, device=DEV)
+            case(f"B2 {B} x {r}x{c} {dt}", cpqr_batched_packed, (Mb,))
+    return rows
+
+
+def _run_both(run, eager_run):
+    """The graph path (its first call captures; timed on a second replay)
+    and the eager loop on the same inputs, each with the read-back and
+    launch counts set to 0 just before and read just after."""
+    out = {}
+    for mode, fn in (("graph_first", run), ("graph", run),
+                     ("eager", eager_run)):
+        reset_launch_counts()
+        _device.reset_readback_count()
+        _graph.reset_graph_stats()
+        torch.cuda.synchronize()
+        if mode != "graph":           # the graph's pools stay reserved
+            torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        begin = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.time()
+        begin.record()
+        res = fn()
+        end.record()
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        stats = _graph.graph_stats()
+        span = begin.elapsed_time(end) / 1e3
+        out[mode] = {"seconds": wall,
+                     # the card's span from the first enqueued work to the
+                     # last, over the wall clock: a replay has no host gap
+                     # inside it, so for the graph path this bounds the busy
+                     # share from above (the profiler cannot trace replays of
+                     # conditional graphs here, see device_loop)
+                     "device_span_seconds": span,
+                     "device_span_share": span / wall,
+                     "readbacks": _device.readback_count(),
+                     "graph_launches": stats["replays"],
+                     "captures": stats["captures"],
+                     "capture_seconds": stats["capture_s"],
+                     "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                     "peak_reserved_GB":
+                         torch.cuda.max_memory_reserved() / 1e9,
+                     "launches": {
+                         "cpqr_hopper": _graph.launches(cpqr_hopper),
+                         "cpqr_batched_packed":
+                             _graph.launches(cpqr_batched_packed),
+                         **wy.launch_counts()},
+                     "result": res}
+    return out
+
+
+def device_loop(profile=True):
+    """The device-resident solve loop against the eager loop on the same
+    inputs: Chained Rosenbrock n=1000 (float32, float64), HS65 x 4096,
+    the ODE fit x 10,000 (float32, with the float64 re-solve of its
+    non-converged lanes) and giant-m (a).  Per path: exit codes,
+    iterations or trips, x equal to the bit, read-backs a solve, graph
+    launches, capture and replay seconds, the card's span over the wall
+    clock (CUDA events), the eager loop's busy share (profiler, one more
+    solve), peak memory.  The graph path is not profiled: torch.profiler
+    over replays of several graphs with conditional nodes ended in an
+    illegal memory access inside the profiler's window on an H100 (the
+    same replays run clean without it)."""
+    rows = []
+    cpqr_batched_packed_plain.cuda_calls = 0
+    kw = chained_rosenbrock(1000)
+    for dtype in (torch.float32, torch.float64):
+        model = et.CnlsModel(**kw)
+        fns = _solve_functions(model, dtype, DEV)
+        dims = et.Dims(1000, 1998, 998, 998)
+        opts = et.Options(second_derivatives=False)
+        tols = et.Tols.for_dtype(dtype, DEV)
+        x0 = torch.as_tensor(model.starting_point, dtype=dtype, device=DEV)
+        run = lambda: core_solve(fns, x0, dims, opts, tols, dtype=dtype)
+        eager = lambda: core_solve(fns, x0, dims, opts, tols, dtype=dtype,
+                                   graph=False)
+        rows.append(_single_row(f"cr1000_{str(dtype)[6:]}", run, eager,
+                                profile))
+    fns, starts = _hs65_batch(torch.float32, HS65_LANES)
+    tols = et.Tols.for_dtype(torch.float32, DEV)
+    rows.append(_batch_row(
+        "hs65_x4096", lambda g: solve_batched(
+            fns, starts, HS65_DIMS, et.Options(), tols, dtype=torch.float32,
+            graph=g), profile))
+    fns, starts, ys, opts, tols = _ode_batch()
+    # (not profiled: the eager ODE fit's ~500,000 launches take the
+    # profiler minutes to sort; its busy share is in PERF.md)
+    rows.append(_batch_row(
+        "ode_fit_x10000", lambda g: solve_batched(
+            fns, starts, ODE_DIMS, opts, tols, dtype=torch.float32, data=ys,
+            escalate_f64=True, graph=g), False))
+    _graph.clear_graph_cache()
+    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32)
+    gopts = et.Options(second_derivatives=False, max_iter=8)
+    gtols = et.Tols.for_dtype(torch.float32, DEV)
+    rows.append(_single_row(
+        "giant_m_a", lambda: core_solve(gm.factored, gm.x0, gm.dims, gopts,
+                                        gtols, dtype=torch.float32),
+        lambda: core_solve(gm.factored, gm.x0, gm.dims, gopts, gtols,
+                           dtype=torch.float32, graph=False), profile))
+    del gm
+    _graph.clear_graph_cache()
+    return rows
+
+
+def _busy(fn):
+    prof = profile_solve(fn)
+    return {k: prof.get(k) for k in ("device_busy_share", "device_kernel_ms",
+                                     "wall_seconds_under_profiler",
+                                     "kernel_launches", "device_time")
+            if k in prof}
+
+
+def _busy_estimate(row):
+    """The device's kernel time of the same work (the eager loop's profile:
+    the graph runs the same kernels) over the replay's wall time."""
+    kernel_ms = row["eager"]["profile"].get("device_kernel_ms")
+    return None if kernel_ms is None else \
+        kernel_ms / 1e3 / row["graph"]["seconds"]
+
+
+def _single_row(name, run, eager, profile):
+    both = _run_both(run, eager)
+    g, e = both["graph"]["result"], both["eager"]["result"]
+    row = {"path": name, "exit_code": [g.exit_code, e.exit_code],
+           "iterations": [g.n_iter, e.n_iter],
+           "x_bits_equal": bool(torch.equal(g.x, e.x)),
+           **{m: {k: v for k, v in both[m].items() if k != "result"}
+              for m in both}}
+    if profile:
+        row["eager"]["profile"] = _busy(eager)
+        row["graph"]["busy_share_estimate"] = _busy_estimate(row)
+    assert g.exit_code == e.exit_code and g.n_iter == e.n_iter, row
+    assert row["x_bits_equal"], row
+    assert both["graph"]["readbacks"] == 1, row
+    return row
+
+
+def _batch_row(name, solve, profile):
+    trips = {}
+
+    def run(g):
+        res = solve(g)
+        trips["graph" if g else "eager"] = run_batch.last_trips
+        return res
+
+    both = _run_both(lambda: run(True), lambda: run(False))
+    g, e = both["graph"]["result"], both["eager"]["result"]
+    lanes_equal = (g.x == e.x).all(dim=-1)
+    row = {"path": name, "lanes": int(g.x.shape[0]),
+           "trips_last_solve": trips,
+           "exit_codes_equal": bool(torch.equal(g.exit_code, e.exit_code)),
+           "x_bits_equal": bool(lanes_equal.all()),
+           "lanes_x_bits_equal": int(lanes_equal.sum()),
+           "lanes_differing": torch.nonzero(~lanes_equal)[:, 0].tolist()[:50],
+           "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+           **{m: {k: v for k, v in both[m].items() if k != "result"}
+              for m in both}}
+    if profile:
+        row["eager"]["profile"] = _busy(lambda: run(False))
+        row["graph"]["busy_share_estimate"] = _busy_estimate(row)
+    assert row["exit_codes_equal"] and row["x_bits_equal"], row
+    assert trips["graph"] == trips["eager"], row
+    assert both["graph"]["readbacks"] <= 2, row
+    assert row["plain_calls_on_card"] == 0, row
+    return row
+
+
 # ------------------------------------------------------------ main path
 
 def solve_cr1000(dtype):
@@ -999,13 +1218,13 @@ def solve_cr1000(dtype):
     et.solve(et.CnlsModel(**kw), dtype=dtype)          # warm-up
     torch.cuda.synchronize()
     model = et.CnlsModel(**kw)
-    cpqr_hopper.launches = 0
+    reset_launch_counts()
     _device.reset_readback_count()
     t0 = time.time()
     et.solve(model, dtype=dtype)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = cpqr_hopper.launches
+    launches = _graph.launches(cpqr_hopper)
     route = cpqr_hopper.last_route
     readbacks = _device.readback_count()
     iters = len(model.model_info.iterations_detail)
@@ -1079,8 +1298,7 @@ def _timed_batch(solve, warmup=None):
     read just after."""
     (warmup or solve)()
     torch.cuda.synchronize()
-    cpqr_batched_packed.launches = 0
-    cpqr_hopper.launches = 0
+    reset_launch_counts()
     _device.reset_readback_count()
     t0 = time.time()
     res = solve()
@@ -1088,8 +1306,9 @@ def _timed_batch(solve, warmup=None):
     seconds = time.time() - t0
     trips = run_batch.last_trips
     stats = {"seconds_per_batch_solve": seconds, "trips": trips,
-             "cpqr_batched_launches": cpqr_batched_packed.launches,
-             "launches_per_trip": cpqr_batched_packed.launches / max(trips, 1),
+             "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
+             "launches_per_trip":
+                 _graph.launches(cpqr_batched_packed) / max(trips, 1),
              "host_readbacks": _device.readback_count(),
              "host_readbacks_per_trip": _device.readback_count() / max(trips, 1)}
     assert stats["cpqr_batched_launches"] >= 2 * trips > 0, stats
@@ -1473,10 +1692,8 @@ RANK_DEADLINE_S = 420
 
 
 def _reset_counts():
-    cpqr_batched_packed.launches = 0
+    reset_launch_counts()
     cpqr_batched_packed_plain.cuda_calls = 0
-    cpqr_hopper.launches = 0
-    wy.reset_launch_counts()
     _device.reset_readback_count()
     _dist.reset_collective_count()
 
@@ -1505,7 +1722,7 @@ def _rank_hs65(rank, world):
             "seconds": time.time() - t0, "trips": run_batch.last_trips,
             "exit_code": res.exit_code.cpu(), "x": res.x.double().cpu(),
             "f": res.f.double().cpu(),
-            "cpqr_batched_launches": cpqr_batched_packed.launches,
+            "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
             "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
             "collectives": _dist.collective_count(),
             "host_readbacks": _device.readback_count()}
@@ -1529,7 +1746,7 @@ def _rank_hetero(rank, world):
                             dtype=torch.float32, fused=fused)
     torch.cuda.synchronize()
     return {"seconds": time.time() - t0, "trips": run_batch.last_trips,
-            "cpqr_batched_launches": cpqr_batched_packed.launches,
+            "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
             "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
             "collectives": _dist.collective_count(),
             "lanes": {n: {"exit_code": r.exit_code.cpu(), "x": r.x.cpu(),
@@ -1567,7 +1784,7 @@ def _rank_giant(rank, world):
             carry = _rowsharded_solve(gm, config, mesh)
             seconds.append(time.time() - t0)
             counts = (wy.launch_counts(), _dist.collective_count(),
-                      _device.readback_count(), cpqr_hopper.launches)
+                      _device.readback_count(), _graph.launches(cpqr_hopper))
         iters = int(carry.nb_iter)
         out[config] = {
             "x": carry.x.double().cpu(), "iterations": iters,
@@ -1886,6 +2103,8 @@ def main() -> None:
     emit({"batched_group_sweep": batched_group_sweep()})
     wcases = check_wy_kernels()
     emit({"wy_kernel_cases": wcases})
+    emit({"graph_kernel_cases": graph_kernel_cases()})
+    _graph.clear_graph_cache()
     l2_rate = l2_copy_rate()
     if "--kernels-only" in sys.argv:
         emit({"kernel_cases": cases, "batched_kernel_cases": bcases,
@@ -1904,6 +2123,8 @@ def main() -> None:
     emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
     giant, gm, giant_kept = solve_giant_m()
     emit({"giant_m": giant})
+    _graph.clear_graph_cache()
+    phase("device_loop", device_loop)
     cpqr_batched_packed_plain.cuda_calls = 0
     hs_rows = phase("hs_suite", hs_suite)
     hetero_stats, hfams, hfused, hopts, hetero_out = phase("hetero_suite",
@@ -1915,6 +2136,7 @@ def main() -> None:
     plain_calls = cpqr_batched_packed_plain.cuda_calls
     assert plain_calls == 0, \
         f"{plain_calls} batched factorizations took the plain version"
+    _graph.clear_graph_cache()
     sharded_hs, sharded_het, gloo = multi_rank_phases(hetero_out, giant_kept)
     if "--profile" in sys.argv:
         emit({"profile_giant_m_a": profile_solve(

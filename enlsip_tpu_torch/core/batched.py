@@ -23,8 +23,7 @@ from __future__ import annotations
 import torch
 from torch.utils import _pytree as pytree
 
-from .._device import to_host_list
-from .._lanes import dot, tree_where
+from .._lanes import cond, dot, lane_flags, tree_where
 from .direction import (AnalysResult, analysis_decide, newton_direction,
                         subspace_direction)
 from .driver import (Functions, WorkingSetRound, _active_cx_sum,
@@ -101,8 +100,8 @@ def batched_direction_analysis(x, rx, cx, active_cx_sum,
                                restart, dims: Dims, opts: Options,
                                rdims=None, hess=None) -> AnalysResult:
     """Batched ANALYS: GNDCHK per lane (cheap); the subspace and Newton
-    directions only when some live lane selects them (one read-back for
-    both gates)."""
+    directions only when some live lane selects them (eagerly one
+    read-back for both gates; captured, an IF node each)."""
     gn = wsr.gn
     rx_sum = dot(rx, rx)
     mc, beta = analysis_decide(cx, wsr.act, active_cx_sum, gn, wsr.view,
@@ -113,22 +112,27 @@ def batched_direction_analysis(x, rx, cx, active_cx_sum,
 
     sub_pred = (mc == -1) & alive
     newton_pred = (mc == 2) & alive
-    any_sub, any_newton = to_host_list(torch.stack([torch.any(sub_pred),
-                                                    torch.any(newton_pred)]))
-    if any_sub:
-        out = tree_where(sub_pred,
-                         subspace_direction(rx, rx_sum, wsr.act,
-                                            active_cx_sum, gn, wsr.F_A, wsr.t,
-                                            prev, restart, dims),
-                         out)
+    any_sub, any_newton = lane_flags(sub_pred, newton_pred)
+    base = out
+    out = cond(any_sub,
+               lambda: tree_where(sub_pred,
+                                  subspace_direction(rx, rx_sum, wsr.act,
+                                                     active_cx_sum, gn,
+                                                     wsr.F_A, wsr.t, prev,
+                                                     restart, dims),
+                                  base),
+               lambda: base)
     if opts.second_derivatives:
-        if any_newton:
-            out = tree_where(newton_pred,
-                             newton_direction(None, None, x, rx, wsr.lam,
-                                              wsr.view, wsr.act, wsr.F_A,
-                                              wsr.F_L11, gn, wsr.t, dims,
-                                              rdims, hess=hess),
-                             out)
+        base2 = out
+        out = cond(any_newton,
+                   lambda: tree_where(newton_pred,
+                                      newton_direction(None, None, x, rx,
+                                                       wsr.lam, wsr.view,
+                                                       wsr.act, wsr.F_A,
+                                                       wsr.F_L11, gn, wsr.t,
+                                                       dims, rdims, hess=hess),
+                                      base2),
+                   lambda: base2)
     else:
         p, b, d, dimA, dimJ2, code, ec = out
         out = (p, b, d, dimA, dimJ2, torch.where(mc == 2, 2, code),

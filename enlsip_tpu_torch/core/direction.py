@@ -7,9 +7,9 @@ k-1.
 
 The decision functions and the three direction branches are free of
 control flow and take one solve's tensors or a batch's (leading lane
-axes).  :func:`search_direction_analysis` is the single solve's switch:
-it reads the method code back and evaluates that one branch; a batch
-switches in ``core/batched.py``.
+axes).  :func:`search_direction_analysis` is the single solve's switch
+on the method code (``_lanes.switch``), which evaluates that one branch;
+a batch switches in ``core/batched.py``.
 """
 
 from __future__ import annotations
@@ -19,9 +19,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from .._device import to_host
 from .._dist import rows_sum
-from .._lanes import ex, put, take1
+from .._lanes import const, ex, put, switch, take1
 from ..ops.qr import prefix_norm, solve_upper
 from .subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
                          GNResult, _embed, factor_l11, j2_transform_d,
@@ -45,7 +44,7 @@ def check_gn_direction(b1nrm, d1nrm, d1nrm_as_km1, dnrm, active_c_sum,
     eps_rel = torch.finfo(b1nrm.dtype).eps
     delta, c1, c2, c3, c4, c5 = 0.1, 0.5, 0.1, 4.0, 10.0, 0.05
     beta_k = torch.sqrt(d1nrm ** 2 + b1nrm ** 2)
-    as_b = lambda v: torch.as_tensor(v, dtype=torch.bool, device=dev)
+    as_b = lambda v: const(v, dev, torch.bool)
     restart, constraint_added, constraint_deleted = (
         as_b(restart), as_b(constraint_added), as_b(constraint_deleted))
 
@@ -149,9 +148,9 @@ def determine_solving_dim(previous_dim, rank, predicted_linear_progress,
     C = diagR.shape[-1]
     dev = diagR.device
     i = torch.arange(C, device=dev)
-    previous_dim = torch.as_tensor(previous_dim, device=dev)
-    rank = torch.as_tensor(rank, device=dev)
-    restart = torch.as_tensor(restart, dtype=torch.bool, device=dev)
+    previous_dim = const(previous_dim, dev)
+    rank = const(rank, dev)
+    restart = const(restart, dev, torch.bool)
     yC = y[..., :C]
     live = i < ex(rank)
     zero = torch.zeros_like(yC)
@@ -189,7 +188,7 @@ def choose_subspace_dimensions(rx_sum, rx, active_cx_sum, t, rankJ2, rankA,
     dev = rx.device
     alpha_low = 0.2
     b = F_L11.qt_b                     # (l,)
-    restart = torch.as_tensor(restart, dtype=torch.bool, device=dev)
+    restart = const(restart, dev, torch.bool)
 
     # rankA > 0 branch
     previous_dimA = prev.dimA.abs() + t - prev.t
@@ -294,7 +293,7 @@ class AnalysResult(NamedTuple):
     beta: torch.Tensor
     speed: torch.Tensor
     error_code: torch.Tensor
-    newton_taken: bool
+    newton_taken: torch.Tensor   # bool, 0-d or per lane
 
 
 def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
@@ -306,30 +305,37 @@ def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
                               constraint_deleted, dims: Dims,
                               scaling: bool, second_derivatives: bool,
                               rdims=None) -> AnalysResult:
-    """ANALYS.  The method code is read back and ONE of the three
-    branches (GN, subspace, Newton) is evaluated on the host's choice."""
+    """ANALYS.  ONE of the three branches (GN, subspace, Newton) is
+    evaluated, chosen by the method code through ``_lanes.switch`` (JAX:
+    ``lax.switch``): a conditional node of the solve's graph, or one
+    read-back in an eager loop."""
     rx_sum = rows_sum(torch.sum(rx * rx, dim=-1))
     rankA, rankJ2 = gn.rankA, gn.rankJ2
 
     method_code, beta = analysis_decide(
         cx, act, active_cx_sum, gn, view, t, lam, iter_number, prev, restart,
         constraint_added, constraint_deleted, dims, scaling, rdims)
-    method = int(to_host(method_code))
-    const = lambda v: torch.full_like(method_code, v)
+    branch = torch.where(method_code == 1, 0,
+                         torch.where(method_code == -1, 1, 2))
+    const_ = lambda v: torch.full_like(method_code, v)
 
-    if method == -1:
-        out = subspace_direction(rx, rx_sum, act, active_cx_sum, gn, F_A, t,
-                                 prev, restart, dims)
-    elif method == 2 and second_derivatives:
-        out = newton_direction(res_fn, cons_fn, x, rx, lam, view, act, F_A,
-                               F_L11, gn, t, dims, rdims)
-    elif method == 2:
-        out = (gn.p, gn.b, gn.d, rankA, rankJ2, const(2), const(-4))
-    else:
-        out = (gn.p, gn.b, gn.d, rankA, rankJ2, const(1), const(0))
-    p, b, d, dimA, dimJ2, code, error_code = out
+    def gn_branch():
+        return (gn.p, gn.b, gn.d, rankA, rankJ2, const_(1), const_(0))
+
+    def subspace_branch():
+        return subspace_direction(rx, rx_sum, act, active_cx_sum, gn, F_A, t,
+                                  prev, restart, dims)
+
+    def newton_branch():
+        if second_derivatives:
+            return newton_direction(res_fn, cons_fn, x, rx, lam, view, act,
+                                    F_A, F_L11, gn, t, dims, rdims)
+        return (gn.p, gn.b, gn.d, rankA, rankJ2, const_(2), const_(-4))
+
+    p, b, d, dimA, dimJ2, code, error_code = switch(
+        branch, [gn_branch, subspace_branch, newton_branch])
 
     return AnalysResult(p=p, b=b, d=d, dimA=dimA, dimJ2=dimJ2, code=code,
                         beta=beta, speed=beta / prev.beta,
                         error_code=error_code,
-                        newton_taken=(method == 2) and second_derivatives)
+                        newton_taken=(method_code == 2) & second_derivatives)

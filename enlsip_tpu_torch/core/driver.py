@@ -17,24 +17,27 @@ Design notes:
   ``index_del = 0``; those are applied directly and the dead
   factorizations skipped.  Actual deletions flow through the
   second-order multiplier estimate, which is fully implemented.
-* The loop runs on the host and takes a Python branch wherever the
-  algorithm branches, evaluating one branch only; every such branch
-  reads a scalar back from the device (``_device.to_host`` counts
-  them).
+* The solve is device-resident, as the JAX package's jitted loop is:
+  on a CUDA device :func:`solve` runs init, the loop over iterations
+  (:func:`run_chunk`) and the packed result (:func:`_pack_result`) as
+  ONE captured CUDA graph (``_graph``), replayed once and read back
+  once; a finite time limit runs the same loop in chunks of a captured
+  chunk graph (:func:`_run_chunk_graph`).  Every count and code of the
+  carry is a device tensor.
 * What is and is not free of control flow: the multiplier estimates,
   SIGNCH, GNDCHK/DIMUPP, TERCRI, UPBND and the three direction branches
   are pure tensor functions.  The factorization stage (F_L11 only where
-  A is rank-deficient), WRKSET's second round, EUCMOD, EVADD and the
-  whole line search DO branch and loop on data.  They do so through
-  ``_lanes.cond`` / ``_lanes.while_loop``, which read a 0-d predicate
-  back and evaluate one side for one solve, and run a batch in lockstep
-  (skip the side no live lane takes, else compute both and select per
-  lane).  So every function of this module takes either one solve's
-  tensors or a batch's with a leading lane axis; ``lanes`` is the
-  batch's live-lane mask.  The per-solve switch on the method code and
-  the host-int bookkeeping live in :func:`iterate_body` /
-  :func:`solve`; their batched counterparts are in ``core/batched.py``
-  and ``parallel/batch.py``.
+  A is rank-deficient), WRKSET's second round, ANALYS's choice of
+  direction, EUCMOD, EVADD and the whole line search DO branch and loop
+  on data.  They do so through ``_lanes.cond`` / ``switch`` /
+  ``while_loop``: for one solve ONE side runs, taken by a conditional
+  node of the graph (or, in an eager loop, on one read-back); a batch
+  runs in lockstep (skip the side no live lane takes, else compute both
+  and select per lane).  So every function of this module takes either
+  one solve's tensors or a batch's with a leading lane axis; ``lanes``
+  is the batch's live-lane mask.  The batched counterparts of
+  :func:`iterate_body` and :func:`solve` are in ``core/batched.py`` and
+  ``parallel/batch.py``.
 """
 
 from __future__ import annotations
@@ -44,9 +47,11 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .._device import resolve_device, to_host
+from .. import _graph
+from .._device import resolve_device, to_host_list
 from .._dist import rows_dot, rows_sum
-from .._lanes import cond, dot, ex, mtv, norm, take, take1
+from .._lanes import (cond, const, dot, ex, mtv, norm, take, take1,
+                      tree_where, while_loop)
 from ..ops.qr import pseudo_rank
 from .direction import search_direction_analysis
 from .linesearch import compute_steplength
@@ -222,7 +227,7 @@ def _ws_round1(mask, A, cx, rx, J, gf, index_del_in, dims: Dims,
     # full-rank.
     full_rank = (t == gn.rankA) & \
         (gn.rankJ2 == torch.minimum(
-            rd.n - gn.rankA, torch.as_tensor(rd.m, device=t.device)))
+            rd.n - gn.rankA, const(rd.m, t.device)))
     lam2 = second_mult_estimate(F_A, gn.JQ1, rx, J, gn.p, t, act, dims,
                                 scaling, F_J2=gn.F_J2, y_gn=gn.y,
                                 jac_base=tall.jac_base)
@@ -332,13 +337,13 @@ def _cx_sq_sum(cx, dims: Dims, rdims):
     if rdims is None:
         return dot(cx, cx)
     real = torch.arange(dims.l, device=cx.device) < \
-        ex(torch.as_tensor(rdims.l, device=cx.device))
+        ex(const(rdims.l, cx.device))
     return torch.sum(torch.where(real, cx * cx, torch.zeros_like(cx)),
                      dim=-1)
 
 
 def _count(flag):
-    """A host bool or a per-lane bool tensor as an increment."""
+    """A host bool or a bool tensor (0-d or per lane) as an increment."""
     return flag.to(torch.int64) if isinstance(flag, torch.Tensor) \
         else int(flag)
 
@@ -352,7 +357,7 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     progress = predicted_reduction = 0, x = x0.
 
     ``x0`` (n,) seeds one solve; ``x0`` (B, n) with lane-mapped ``fns``
-    seeds a batch (the host-int fields become (B,) tensors)."""
+    seeds a batch (the count fields are then (B,) tensors, else 0-d)."""
     dev = resolve_device(device)
     x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
     lead = tuple(x0.shape[:-1])
@@ -360,7 +365,6 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     mask, w0, K = init_working_set(cx, A, x0, dims, rdims)
     f = lambda v: torch.full(lead, v, dtype=dtype, device=dev)
     i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
-    host = (lambda v: i(v)) if lead else (lambda v: v)
     prev = PrevIter(
         x=x0, rx_sum=rows_dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
         t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
@@ -370,11 +374,11 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
         x=x0, rx=rx, cx=cx, J=J, A=A, gf=_grad_f(fns, J, rx),
         active_mask=mask, w=w0, K=K, prev=prev,
         restart=torch.zeros(lead, dtype=torch.bool, device=dev),
-        index_del=i(-1), nb_newton_steps=host(0), nb_iter=host(0),
-        exit_code=host(0), counters=counters,
+        index_del=i(-1), nb_newton_steps=i(0), nb_iter=i(0),
+        exit_code=i(0), counters=counters,
         display=torch.zeros((*lead, opts.max_iter + 1, 5), dtype=dtype,
                             device=dev),
-        n_display=host(0))
+        n_display=i(0))
 
 
 def _stall_hint(carry: Carry, tols: Tols):
@@ -428,12 +432,11 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
                     rx_sum_start, cx_sum_start, rdims=None,
                     lanes=None) -> Carry:
     """Everything after ANALYS: STPLNG, the step, new_point, TERCRI and
-    the bookkeeping (the reference's loop tail).  One solve keeps its
-    codes and counts as host ints and does the bookkeeping under a host
-    branch; a batch (``carry.x`` (B, n), lane-mapped ``fns``, ``lanes``
-    the live lanes) keeps them as (B,) tensors and selects per lane."""
+    the bookkeeping (the reference's loop tail), with its codes and
+    counts as device tensors and the bookkeeping by select (0-d for one
+    solve; for a batch, ``carry.x`` (B, n), lane-mapped ``fns`` and
+    ``lanes`` the live lanes, (B,))."""
     x, rx, cx, J, A = carry.x, carry.rx, carry.cx, carry.J, carry.A
-    batched = x.ndim > 1
     t = wsr.t
     act_idx = wsr.view.active_list[..., :dims.tmax]
     # The reference bumps the residual/constraint counters through its
@@ -448,7 +451,7 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     else:       # black-box default: res at the trial point
         res_trial = lambda xx, pp: (
             lambda a: fns.res(xx + ex(a.to(xx.dtype)) * pp))
-    code = ana.code if batched else int(to_host(ana.code))
+    code = ana.code
     sl = compute_steplength(
         res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
         ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
@@ -479,34 +482,24 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
         x_new, carry.prev.x, cx_new, wsr.mask, rx_sum_new, gf_new,
         carry.nb_iter, opts.max_iter, tols, ana.error_code, sigma_min,
         lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)
-    if not batched:
-        exit_code = int(to_host(exit_code))
 
     # --- bookkeeping: display, EVADD, prev snapshot -------------------
-    first = carry.nb_iter == 0
+    first = const(carry.nb_iter == 0, x.device)
     record = first | (exit_code == 0)
-    upd = torch.as_tensor(sl.updated_progress, device=x.device)
+    upd = const(sl.updated_progress, x.device)
     progress_out = torch.where(upd, sl.progress, carry.prev.progress)
     predred_out = torch.where(upd, sl.predicted_reduction,
                               carry.prev.predicted_reduction)
-    display, mask_final = carry.display, wsr.mask
-    if batched or record:
-        objective = torch.where(first, rx_sum_start, rx_sum_new) if batched \
-            else (rx_sum_start if first else rx_sum_new)
-        row = torch.stack([objective, active_cx_sum, norm(ana.p), sl.alpha,
-                           progress_out], dim=-1)
-        mask_add, _added = evaluate_violated_constraints(
-            cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
-        if batched:
-            slot = torch.arange(display.shape[-2], device=x.device)
-            here = ex(record) & (slot == ex(carry.nb_iter))
-            display = torch.where(here[..., None], row[..., None, :], display)
-            mask_final = torch.where(ex(record), mask_add, wsr.mask)
-        else:
-            # in-place row assignment: the display buffer belongs to the
-            # carry
-            display[carry.nb_iter] = row
-            mask_final = mask_add
+    objective = torch.where(first, rx_sum_start, rx_sum_new)
+    row = torch.stack([objective, active_cx_sum, norm(ana.p), sl.alpha,
+                       progress_out], dim=-1)
+    mask_add, _added = evaluate_violated_constraints(
+        cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
+    display = carry.display
+    slot = torch.arange(display.shape[-2], device=x.device)
+    here = ex(record) & (slot == ex(carry.nb_iter))
+    display = torch.where(here[..., None], row[..., None, :], display)
+    mask_final = torch.where(ex(record), mask_add, wsr.mask)
 
     prev_new = PrevIter(
         x=x, rx_sum=rx_sum_start, cx_sum=cx_sum_start, t=t, alpha=sl.alpha,
@@ -524,6 +517,48 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
         n_display=carry.n_display + _count(record))
 
 
+def guarded_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
+                 tols: Tols, rdims=None) -> Carry:
+    """Run one iteration unless the solve has already terminated (the
+    freeze rule)."""
+    new = iterate_body(carry, fns, dims, opts, tols, rdims)
+    return tree_where(carry.exit_code != 0, carry, new)
+
+
+def run_chunk(carry: Carry, fns: Functions, dims: Dims, opts: Options,
+              tols: Tols, chunk, rdims=None) -> Carry:
+    """Up to ``chunk`` iterations (an int or a 0-d device tensor) while
+    the solve has not terminated: one WHILE node when captured, a loop
+    with one read-back a trip when run eagerly."""
+    start = carry.nb_iter
+
+    def go(c):
+        return (c.exit_code == 0) & (c.nb_iter - start < chunk)
+
+    def body(c):
+        return iterate_body(c, fns, dims, opts, tols, rdims)
+
+    return while_loop(go, body, carry)
+
+
+# Layout of the packed result: [exit_code, f, nb_iter, n_display, the
+# four counters, x (n), display ((max_iter + 1) * 5)], in the solve
+# dtype (the integer fields are small and exact in float32).
+_HEAD = 8
+
+
+def _pack_result(carry: Carry, f) -> torch.Tensor:
+    """Every field :func:`solve` reports in ONE buffer, so the result
+    crosses to the host in one transfer."""
+    dt = f.dtype
+    cnt = carry.counters
+    head = torch.stack([
+        carry.exit_code.to(dt), f, carry.nb_iter.to(dt),
+        carry.n_display.to(dt), cnt.nb_res.to(dt), cnt.nb_jacres.to(dt),
+        cnt.nb_cons.to(dt), cnt.nb_jaccons.to(dt)])
+    return torch.cat([head, carry.x, carry.display.reshape(-1)])
+
+
 class SolveResult(NamedTuple):
     exit_code: int
     x: torch.Tensor
@@ -535,36 +570,133 @@ class SolveResult(NamedTuple):
     solving_time: float
 
 
+def _unpack_result(flat: torch.Tensor, n: int,
+                   start_time: float) -> SolveResult:
+    """The result from a packed buffer: the host fields from ONE counted
+    read-back of the buffer, x and the display as device tensors."""
+    head = to_host_list(flat[:_HEAD])
+    exit_code, f, n_iter, n_display = (int(head[0]), float(head[1]),
+                                       int(head[2]), int(head[3]))
+    counters = Counters(*(int(v) for v in head[4:8]))
+    return SolveResult(exit_code=exit_code, x=flat[_HEAD:_HEAD + n].clone(),
+                       f=f, n_iter=n_iter,
+                       display=flat[_HEAD + n:].reshape(-1, 5).clone(),
+                       n_display=n_display, counters=counters,
+                       solving_time=time.time() - start_time)
+
+
+def _warm(fns: Functions, x) -> None:
+    """Every closure once at ``x``, eagerly (before a capture)."""
+    new_point(fns, x, Counters.zeros())
+    if fns.res_trial is not None:
+        fns.res_trial(x, torch.zeros_like(x))(
+            torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _static_key(fns: Functions, dims: Dims, opts: Options, dtype):
+    return (fns, dims, opts, dtype)
+
+
+def _solve_full_graph(x0, tols: Tols, fns: Functions, dims: Dims,
+                      opts: Options, dtype) -> torch.Tensor:
+    """Init, the whole loop and the packed result as ONE device program
+    (JAX ``_solve_full_jit``): the returned buffer is the graph's."""
+    def full(x0, tols):
+        carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
+        carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
+        return _pack_result(carry, rows_dot(carry.rx, carry.rx))
+
+    key = ("solve",) + _static_key(fns, dims, opts, dtype) + \
+        _graph.shapes_key(x0)
+    return _graph.run(key, full, (x0, tols), x0.device,
+                      warm=lambda: _warm(fns, x0))
+
+
+def _run_chunk_graph(carry: Carry, tols: Tols, chunk: torch.Tensor,
+                     fns: Functions, dims: Dims, opts: Options) -> Carry:
+    """Up to ``chunk`` iterations as a captured graph (JAX
+    ``_run_chunk_jit``): ``chunk`` is a device scalar, so one graph
+    serves every chunk size.  Returns the graph's carry buffers."""
+    def step(carry, tols, chunk):
+        return run_chunk(carry, fns, dims, opts, tols, chunk)
+
+    key = ("chunk",) + _static_key(fns, dims, opts, carry.x.dtype) + \
+        _graph.shapes_key(carry)
+    return _graph.run(key, step, (carry, tols, chunk), carry.x.device,
+                      warm=lambda: _warm(fns, carry.x))
+
+
+def _run_chunk_eager(carry: Carry, tols: Tols, chunk: torch.Tensor,
+                     fns: Functions, dims: Dims, opts: Options) -> Carry:
+    return run_chunk(carry, fns, dims, opts, tols, chunk)
+
+
 def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
           time_limit: Optional[float] = None, dtype=None, device=None,
-          on_iteration: Optional[Callable[[Carry], None]] = None
-          ) -> SolveResult:
-    """Host-level solve: the iteration loop with a wall-clock limit.
+          on_iteration: Optional[Callable[[Carry], None]] = None,
+          graph: bool = True) -> SolveResult:
+    """Host-level solve: the device-resident loop and a wall-clock limit.
 
     Runs on ``device`` (default: the card; raises if there is none).
-    Like the reference, the loop reads the clock every iteration;
-    ``time_limit`` (seconds; ``None`` = unlimited) that has run out
-    before an iteration starts ends the solve with exit code -11.
-    ``on_iteration(carry)`` is called after every iteration (tracing and
-    tests)."""
+    With the default unlimited ``time_limit`` (``None`` / ``inf``) the
+    whole solve is ONE replay of a captured graph (init, the loop, the
+    packed result) and ONE read-back.  A finite limit, which a device
+    loop cannot check against the clock, follows the JAX package's
+    schedule: one measured iteration, then chunks of half the remaining
+    budget at the measured time an iteration (one replay of the chunk
+    graph and one read-back each); a limit that has run out before a
+    chunk starts ends the solve with exit code -11.
+    ``on_iteration(carry)`` is called after every iteration (chunks of
+    one; tracing and tests).  On the CPU the same device-resident code
+    runs eagerly with every read-back outside the control-flow helpers
+    forbidden.  ``graph=False`` runs :func:`run_chunk` as an eager loop
+    instead (one read-back a branch; the comparison for the graph)."""
     dev = resolve_device(device)
     if dtype is None:
         dtype = x0.dtype if isinstance(x0, torch.Tensor) else torch.float64
     start_time = time.time()
-    limit = float("inf") if time_limit is None else time_limit
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
     tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
                   for v in tols))
-    with matmul_precision_scope(opts):
+    unlimited = time_limit is None or time_limit == float("inf")
+    with matmul_precision_scope(opts), _graph.linalg_scope(dev):
+        if unlimited and on_iteration is None:
+            if graph:
+                flat = _solve_full_graph(x0, tols, fns, dims, opts, dtype)
+            else:
+                carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
+                carry = run_chunk(carry, fns, dims, opts, tols,
+                                  opts.max_iter + 1)
+                flat = _pack_result(carry, rows_dot(carry.rx, carry.rx))
+            return _unpack_result(flat, dims.n, start_time)
+        runner = _run_chunk_graph if graph else _run_chunk_eager
+        limit = float("inf") if unlimited else time_limit
         carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
-        while carry.exit_code == 0:
-            if time.time() - start_time >= limit:
-                carry = carry._replace(exit_code=-11)
+        per_iter, done = None, 0
+        while True:
+            remaining = limit - (time.time() - start_time)
+            if remaining <= 0:
+                carry = carry._replace(
+                    exit_code=torch.full_like(carry.exit_code, -11))
                 break
-            carry = iterate_body(carry, fns, dims, opts, tols)
+            if per_iter is None or on_iteration is not None:
+                chunk = 1      # the measured chunk
+            else:
+                chunk = max(1, min(opts.max_iter + 1,
+                                   int(0.5 * remaining / per_iter)))
+            t0 = time.time()
+            carry = runner(carry, tols,
+                           torch.full((), chunk, dtype=torch.int64,
+                                      device=dev), fns, dims, opts)
+            exit_code, nb_iter = to_host_list(
+                torch.stack([carry.exit_code, carry.nb_iter]))
+            measured = (time.time() - t0) / max(nb_iter - done, 1)
+            done = nb_iter
+            per_iter = measured if per_iter is None else max(
+                0.5 * per_iter, measured)
             if on_iteration is not None:
                 on_iteration(carry)
-        f = float(rows_dot(carry.rx, carry.rx))
-    return SolveResult(exit_code=carry.exit_code, x=carry.x, f=f,
-                       n_iter=carry.nb_iter, display=carry.display,
-                       n_display=carry.n_display, counters=carry.counters,
-                       solving_time=time.time() - start_time)
+            if exit_code != 0:
+                break
+        flat = _pack_result(carry, rows_dot(carry.rx, carry.rx))
+        return _unpack_result(flat, dims.n, start_time)

@@ -44,7 +44,7 @@ import torch
 
 from .._dist import (global_rows, row_mesh_in_scope, rows_dot, rows_sum,
                      rows_sums)
-from .._lanes import dot, ex, mtv, mv, put, take, take_rows
+from .._lanes import const, dot, ex, mtv, mv, put, take, take_rows
 from ..ops.blocked_qr import (CPQRF, _panels, cpqr_blocked, q_apply,
                               qt_apply, right_q_apply)
 from ..ops.qr import invperm, pseudo_rank, solve_lower, solve_upper
@@ -338,9 +338,9 @@ def sub_search_direction(act: ActiveConstraint, rx: torch.Tensor,
     # the solve is clamped so the unselected branch stays finite.
     p1_full = solve_lower(F_A.R.transpose(-1, -2)[..., :ka, :ka],
                           bvec[..., :ka],
-                          torch.clamp(torch.as_tensor(t, device=dev), max=ka))
+                          torch.clamp(const(t, dev), max=ka))
     p1_stab = _p1_stabilized(F_L11, dimA, rankA)
-    use_full = ex(torch.as_tensor(code, device=dev) == 1)
+    use_full = ex(const(code, dev) == 1)
     p1 = torch.where(use_full, p1_full, p1_stab)   # (ka,)
     b = torch.where(use_full, bvec, F_L11.qt_b)    # (l,)
     # Embed p1 into y-coordinates (first rankA slots; rankA == t if code 1).
@@ -442,8 +442,7 @@ def gn_search_direction(J: torch.Tensor, rx: torch.Tensor,
             F_J2 = FactorJ2(f=cpqr_blocked(J2buf, nsteps=n - rankA,
                                            device=J.device))
     # Semantic diag length (pseudo_rank's sqrt(len) tolerance factor).
-    len_diag = torch.minimum(rd.n - rankA, torch.as_tensor(rd.m,
-                                                           device=J.device))
+    len_diag = torch.minimum(rd.n - rankA, const(rd.m, J.device))
     rankJ2 = pseudo_rank(F_J2.diag, len_diag, eps_rank)
     code = torch.where(rankA == t, 1, -1)
     p, b, d, y = sub_search_direction(act, rx, F_A, F_L11, F_J2, JQ1, t,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .._lanes import mtv, norm, take
+from .._lanes import const, mtv, norm, take
 from ..ops.qr import prefix_dot
 from .types import Dims, Tols, rdims_or
 
@@ -36,7 +36,7 @@ def check_termination(p, code, restart, deleted, d_gn, dimJ2, grad_res,
     alfnoi = rel / (norm(p) + rel)
     T, F = (torch.ones((), dtype=torch.bool, device=dev),
             torch.zeros((), dtype=torch.bool, device=dev))
-    as_t = lambda v: torch.as_tensor(v, device=dev)
+    as_t = lambda v: const(v, dev)
     code, error_code, psi_error = as_t(code), as_t(error_code), as_t(psi_error)
     restart, deleted = as_t(restart), as_t(deleted)
 

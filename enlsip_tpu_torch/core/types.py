@@ -4,14 +4,12 @@ Counterpart of ``enlsip_tpu/core/types.py``.  The reference threads a
 mutable ``Iteration`` record plus a ``WorkingSet`` through its loop;
 here the solver state is one :class:`Carry` of tensors, the working set
 is a boolean mask over the ``l`` constraints, and every data-dependent
-dimension (t, rankA, rankJ2, dimA, dimJ2) is a 0-d int64 tensor that the
-host loop reads back only where it has to branch.
+dimension (t, rankA, rankJ2, dimA, dimJ2), code and count is a 0-d
+int64 tensor that stays on the device (a branch on it is a conditional
+node of the solve's graph, or one read-back in an eager loop).
 
 A batch of solves uses the same structures with a leading lane axis on
-every tensor: vectors ``(B, n)``, per-lane scalars ``(B,)``.  The fields
-that one solve keeps as host ints (``Carry.exit_code``, ``nb_iter``,
-``nb_newton_steps``, ``n_display`` and the :class:`Counters`) are then
-``(B,)`` int64 tensors, one value per lane.
+every tensor: vectors ``(B, n)``, per-lane scalars ``(B,)``.
 """
 
 from __future__ import annotations
@@ -157,8 +155,9 @@ class Tols(NamedTuple):
 
 
 class Counters(NamedTuple):
-    """Evaluation counters, observable via ExecutionInfo: host ints for
-    one solve, ``(B,)`` int64 tensors for a batch."""
+    """Evaluation counters, observable via ExecutionInfo: int64 tensors
+    in the solver's carry (0-d for one solve, ``(B,)`` for a batch); a
+    single solve's result reports them as host ints."""
 
     nb_res: int
     nb_jacres: int
@@ -167,8 +166,10 @@ class Counters(NamedTuple):
 
     @staticmethod
     def zeros(lead=(), device=None) -> "Counters":
-        """All-zero counters; with leading lane axes ``lead``, tensors."""
-        if not lead:
+        """All-zero counters: host ints with neither lane axes ``lead`` nor
+        a ``device``, else int64 tensors (0-d for one solve on a
+        device)."""
+        if not lead and device is None:
             return Counters(0, 0, 0, 0)
         return Counters(*(torch.zeros(lead, dtype=torch.int64, device=device)
                           for _ in range(4)))
@@ -215,12 +216,12 @@ class Carry(NamedTuple):
     prev: PrevIter
     restart: torch.Tensor    # bool, current iter restart flag (carried)
     index_del: torch.Tensor  # global constraint index, -1 = none (carried)
-    nb_newton_steps: int     # host int; (B,) int64 tensor in a batch
-    nb_iter: int             # likewise
-    exit_code: int           # likewise
+    nb_newton_steps: torch.Tensor  # int64, 0-d; (B,) in a batch
+    nb_iter: torch.Tensor    # likewise
+    exit_code: torch.Tensor  # likewise
     counters: Counters
     display: torch.Tensor    # (max_iter+1, 5): objective, act_cx_sum, |p|, alpha, progress
-    n_display: int           # host int; (B,) int64 tensor in a batch
+    n_display: torch.Tensor  # int64, 0-d; (B,) in a batch
 
 
 class WorkingView(NamedTuple):

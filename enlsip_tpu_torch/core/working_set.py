@@ -17,8 +17,7 @@ import math
 
 import torch
 
-from .._device import to_host_list
-from .._lanes import ex, norm, take1
+from .._lanes import const, ex, norm, take1, while_loop
 from .types import Dims, rdims_or
 
 
@@ -114,9 +113,10 @@ def evaluate_violated_constraints(cx: torch.Tensor, mask: torch.Tensor,
     depends only on cx and ``index_alpha_upp``, never on the evolving
     mask.  A lane whose wanting candidates all fit under the capacity
     bound takes them at once (the scan would add each one plainly); the
-    scan itself runs only over the constraint indices that some
-    over-capacity lane wants, which are read back as one list (usually
-    empty) — the single host read of this function.
+    scan itself is a device loop (``_lanes.while_loop``, JAX:
+    ``lax.fori_loop`` over the inactive slots) whose trips are the
+    constraint indices that some over-capacity lane wants, in ascending
+    order (none, usually: the loop then takes no trip).
 
     Parity note (as in the reference port): constraints swapped *out*
     within the pass are not rescanned."""
@@ -126,31 +126,45 @@ def evaluate_violated_constraints(cx: torch.Tensor, mask: torch.Tensor,
     dev = cx.device
     eps_s = math.sqrt(torch.finfo(cx.dtype).eps)
     delta = 0.1
-    bnd = torch.minimum(torch.as_tensor(rd.l, device=dev),
-                        torch.as_tensor(rd.n, device=dev))
+    bnd = torch.minimum(const(rd.l, dev), const(rd.n, dev))
     idxg = torch.arange(l, device=dev)
     want = (~mask) & ((cx < eps_s) |
                       ((idxg == ex(index_alpha_upp)) & (cx < delta)))
     n_want = torch.sum(want, dim=-1)
     fits = torch.sum(mask, dim=-1) + n_want <= bnd
     scan = want & ex(~fits)
-    ks = to_host_list(torch.nonzero(scan.reshape(-1, l).any(dim=0))[:, 0])
+    scanned = scan.reshape(-1, l).any(dim=0)       # (l,): some lane scans k
     m = mask | (want & ex(fits))
     added = fits & (n_want > 0)
     neg_inf = torch.full_like(cx, -math.inf)
-    for k in ks:
-        wk = scan[..., k]
+
+    def next_k(after):
+        """The first scanned index past ``after`` (l when none is left)."""
+        later = (scanned & (idxg > after)).to(torch.int32)
+        return torch.where(torch.any(later > 0), torch.argmax(later),
+                           torch.full_like(after, l))
+
+    def more(st):
+        return st[2] < l
+
+    def scan_one(st):
+        m, added, k = st
+        wk = take1(scan, k)
+        ck = take1(cx, k)
         at_cap = torch.sum(m, dim=-1) >= bnd
         # Least-violated (max cx) active inequality; first argmax like
         # the reference's strict-> scan over ascending slots.
         act_ineq = m & (idxg >= ex(q))
         vals = torch.where(act_ineq, cx, neg_inf)
         worst = torch.argmax(vals, dim=-1)
-        can_swap = torch.any(act_ineq, dim=-1) & \
-            (take1(vals, worst) > cx[..., k])
+        can_swap = torch.any(act_ineq, dim=-1) & (take1(vals, worst) > ck)
         do_plain = wk & ~at_cap
         do_swap = wk & at_cap & can_swap
         m = m & ~(ex(do_swap) & (idxg == ex(worst)))
         m = m | (ex(do_plain | do_swap) & (idxg == k))
         added = added | do_plain | do_swap
+        return m, added, next_k(k)
+
+    first = next_k(torch.full((), -1, dtype=torch.int64, device=dev))
+    m, added, _ = while_loop(more, scan_one, (m, added, first))
     return m, added

@@ -2,8 +2,9 @@
 //
 // Replaces the Pallas kernel enlsip_tpu/ops/pallas_qr2.py::_kernel and
 // computes the same function: exact trailing column norms every step,
-// the first maximum as pivot, one Householder step, a host-supplied
-// number of steps, and the result packed (R above the diagonal, the
+// the first maximum as pivot, one Householder step, a number of steps
+// read from device memory (the TPU kernel takes it in SMEM) and clamped
+// to min(rows, cols), and the result packed (R above the diagonal, the
 // Householder beta on it, the reflector tail below) as a (cols, rows)
 // buffer with tau and the pivot permutation beside it.
 //
@@ -117,12 +118,24 @@ __host__ __device__ inline size_t resident_shared_bytes(int rows, int cols,
   return (nloc * rows + rows + nloc) * itemsize + 2 * (size_t)cols * sizeof(int);
 }
 
+// The step count of a launch: *nsteps_p clamped to [0, min(rows, cols)].
+// It lives in device memory so that a count the solver computed on the
+// card is never read back, and a captured graph replays with the count of
+// the replay.
+__device__ __forceinline__ int step_count(const int* nsteps_p, int rows,
+                                          int cols) {
+  const int kmax = rows < cols ? rows : cols;
+  const int n = *nsteps_p;
+  return n < 0 ? 0 : (n > kmax ? kmax : n);
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kResThreads, 1)
 cpqr_resident(const T* __restrict__ M, T* __restrict__ out,
               T* __restrict__ tauv, long long* __restrict__ perm, T* cand,
-              T* cval, int* cpos, int* counter, int rows, int cols, int nsteps,
-              int kp) {
+              T* cval, int* cpos, int* counter, const int* nsteps_p, int rows,
+              int cols, int kp) {
+  const int nsteps = step_count(nsteps_p, rows, cols);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ T s_val;
   __shared__ int s_blk, s_col;
@@ -328,10 +341,8 @@ cpqr_resident(const T* __restrict__ M, T* __restrict__ out,
 
 template <typename T>
 int resident_run(const T* M, T* out, T* tauv, long long* perm, T* cand, T* cval,
-                 int* cpos, int* counter, int rows, int cols, int nsteps,
-                 int kp, int blocks, cudaStream_t stream) {
-  const int kmax = rows < cols ? rows : cols;
-  if (nsteps > kmax) nsteps = kmax;
+                 int* cpos, int* counter, const int* nsteps, int rows,
+                 int cols, int kp, int blocks, cudaStream_t stream) {
   if (blocks < 1 || blocks > cols) return (int)cudaErrorInvalidValue;
   const size_t smem = resident_shared_bytes(rows, cols, blocks, sizeof(T));
   auto kernel = cpqr_resident<T>;
@@ -345,10 +356,13 @@ int resident_run(const T* M, T* out, T* tauv, long long* perm, T* cand, T* cval,
                                                       kResThreads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
+  // The barrier counter only grows within a launch; zeroing it in stream
+  // order before every launch (a memset node when the launch is
+  // captured) gives every replay of a graph a clean start.
   err = cudaMemsetAsync(counter, 0, sizeof(int), stream);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&M,    &out,     &tauv, &perm, &cand,   &cval,
-                  &cpos, &counter, &rows, &cols, &nsteps, &kp};
+  void* args[] = {&M,    &out,     &tauv,   &perm, &cand, &cval,
+                  &cpos, &counter, &nsteps, &rows, &cols, &kp};
   err = cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks),
                                     dim3(kResThreads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
@@ -383,7 +397,9 @@ barrier_probe(int* counter, int iters) {
 // columns (the pass before step 0).
 template <typename T>
 __global__ void update_norms(T* bt, const T* tauv, T* pval, int* pidx,
-                             int rows, int cols, int k) {
+                             const int* nsteps_p, int rows, int cols, int k) {
+  // a step past the count is a no-op (the launch sequence is fixed)
+  if (k >= step_count(nsteps_p, rows, cols)) return;
   __shared__ T sval[kWarpsPerBlock];
   __shared__ int sidx[kWarpsPerBlock];
   const int lane = threadIdx.x & 31;
@@ -435,8 +451,9 @@ __global__ void update_norms(T* bt, const T* tauv, T* pval, int* pidx,
 // Step k's pivot choice, column swap, reflector and packed column.
 template <typename T>
 __global__ void pivot_reflect(T* bt, T* tauv, int* perm, const T* pval,
-                              const int* pidx, int npart, int rows, int cols,
-                              int k) {
+                              const int* pidx, const int* nsteps_p, int npart,
+                              int rows, int cols, int k) {
+  if (k >= step_count(nsteps_p, rows, cols)) return;
   __shared__ T sval[kPivotThreads];
   __shared__ int sidx[kPivotThreads];
   __shared__ T sdenom;
@@ -506,24 +523,26 @@ __global__ void pivot_reflect(T* bt, T* tauv, int* perm, const T* pval,
   for (int i = k + 1 + tid; i < rows; i += kPivotThreads) ck[i] = ck[i] / denom;
 }
 
+// The host cannot know the count (it is in device memory), so the launch
+// sequence covers every possible step and the kernels of a step past the
+// count return at once.
 template <typename T>
-int cpqr_run(T* bt, T* tauv, int* perm, T* pval, int* pidx, int rows, int cols,
-             int nsteps, cudaStream_t stream) {
+int cpqr_run(T* bt, T* tauv, int* perm, T* pval, int* pidx, const int* nsteps,
+             int rows, int cols, cudaStream_t stream) {
   const int kmax = rows < cols ? rows : cols;
-  if (nsteps > kmax) nsteps = kmax;
-  if (nsteps > 0) {
+  if (kmax > 0) {
     int nblk = (cols + kWarpsPerBlock - 1) / kWarpsPerBlock;
     update_norms<T><<<nblk, kWarpsPerBlock * 32, 0, stream>>>(
-        bt, tauv, pval, pidx, rows, cols, -1);
+        bt, tauv, pval, pidx, nsteps, rows, cols, -1);
     int npart = nblk;
-    for (int k = 0; k < nsteps; ++k) {
+    for (int k = 0; k < kmax; ++k) {
       pivot_reflect<T><<<1, kPivotThreads, 0, stream>>>(
-          bt, tauv, perm, pval, pidx, npart, rows, cols, k);
+          bt, tauv, perm, pval, pidx, nsteps, npart, rows, cols, k);
       const int ntrail = cols - k - 1;
       if (ntrail > 0) {
         nblk = (ntrail + kWarpsPerBlock - 1) / kWarpsPerBlock;
         update_norms<T><<<nblk, kWarpsPerBlock * 32, 0, stream>>>(
-            bt, tauv, pval, pidx, rows, cols, k);
+            bt, tauv, pval, pidx, nsteps, rows, cols, k);
         npart = nblk;
       }
     }
@@ -536,22 +555,26 @@ int cpqr_run(T* bt, T* tauv, int* perm, T* pval, int* pidx, int rows, int cols,
 // C interface.  Every function launches on `stream`, allocates nothing,
 // does not synchronise, and returns the first CUDA error (0 = success).
 //
+// Both routes take the step count as a pointer to one device int32
+// (clamped to [0, min(rows, cols)] on the device).
+//
 // Stream route.  bt: (cols, rows) matrix, transposed, overwritten with
 // the packed result; tauv: (kp,) zero-filled by the caller; perm: (cols,)
 // int32 holding 0..cols-1; pval/pidx: scratch of ceil(cols / 4) entries.
 extern "C" int cpqr_f32(void* bt, void* tauv, void* perm, void* pval,
-                        void* pidx, int rows, int cols, int nsteps,
+                        void* pidx, const void* nsteps, int rows, int cols,
                         void* stream) {
   return cpqr_run<float>((float*)bt, (float*)tauv, (int*)perm, (float*)pval,
-                         (int*)pidx, rows, cols, nsteps, (cudaStream_t)stream);
+                         (int*)pidx, (const int*)nsteps, rows, cols,
+                         (cudaStream_t)stream);
 }
 
 extern "C" int cpqr_f64(void* bt, void* tauv, void* perm, void* pval,
-                        void* pidx, int rows, int cols, int nsteps,
+                        void* pidx, const void* nsteps, int rows, int cols,
                         void* stream) {
   return cpqr_run<double>((double*)bt, (double*)tauv, (int*)perm,
-                          (double*)pval, (int*)pidx, rows, cols, nsteps,
-                          (cudaStream_t)stream);
+                          (double*)pval, (int*)pidx, (const int*)nsteps, rows,
+                          cols, (cudaStream_t)stream);
 }
 
 // Resident route.  M: (rows, cols) row-major, read only; out: (cols, rows)
@@ -562,22 +585,24 @@ extern "C" int cpqr_f64(void* bt, void* tauv, void* perm, void* pval,
 // device's opt-in limit.
 extern "C" int cpqr_resident_f32(const void* M, void* out, void* tauv,
                                  void* perm, void* cand, void* cval,
-                                 void* cpos, void* counter, int rows, int cols,
-                                 int nsteps, int kp, int blocks, void* stream) {
+                                 void* cpos, void* counter, const void* nsteps,
+                                 int rows, int cols, int kp, int blocks,
+                                 void* stream) {
   return resident_run<float>((const float*)M, (float*)out, (float*)tauv,
                              (long long*)perm, (float*)cand, (float*)cval,
-                             (int*)cpos, (int*)counter, rows, cols, nsteps, kp,
-                             blocks, (cudaStream_t)stream);
+                             (int*)cpos, (int*)counter, (const int*)nsteps,
+                             rows, cols, kp, blocks, (cudaStream_t)stream);
 }
 
 extern "C" int cpqr_resident_f64(const void* M, void* out, void* tauv,
                                  void* perm, void* cand, void* cval,
-                                 void* cpos, void* counter, int rows, int cols,
-                                 int nsteps, int kp, int blocks, void* stream) {
+                                 void* cpos, void* counter, const void* nsteps,
+                                 int rows, int cols, int kp, int blocks,
+                                 void* stream) {
   return resident_run<double>((const double*)M, (double*)out, (double*)tauv,
                               (long long*)perm, (double*)cand, (double*)cval,
-                              (int*)cpos, (int*)counter, rows, cols, nsteps, kp,
-                              blocks, (cudaStream_t)stream);
+                              (int*)cpos, (int*)counter, (const int*)nsteps,
+                              rows, cols, kp, blocks, (cudaStream_t)stream);
 }
 
 extern "C" long long cpqr_resident_shared_bytes(int rows, int cols, int blocks,

@@ -1,0 +1,143 @@
+// Conditional nodes (IF, WHILE) in a CUDA graph that PyTorch is capturing.
+//
+// Counterpart of the device-side control flow of the JAX package's
+// jitted solve: lax.cond / lax.switch / lax.while_loop / lax.fori_loop
+// inside enlsip_tpu/core/driver.py::_solve_full_jit and
+// enlsip_tpu/parallel/batch.py::_solve_batched_jit.  This file holds no
+// TPU kernel's counterpart; it is the executor's plumbing
+// (enlsip_tpu_torch/_graph.py).
+//
+// How a body is captured.  While `stream` is capturing into graph G,
+// cg_begin
+//   1. creates a conditional handle in G,
+//   2. enqueues on `stream` a one-thread kernel that reads a 0-d flag
+//      (one byte, 0 or 1) from device memory and sets the handle,
+//   3. adds a conditional node (IF or WHILE, one body) to G after every
+//      node the capture has so far, and makes that node the capture's
+//      only dependency,
+//   4. starts capturing `child` (an idle stream) into the node's body.
+// The caller then enqueues the body's work on `child`; a WHILE body ends
+// with cg_set on `child`, which sets the handle again from the flag the
+// body recomputed (the loop runs again while it is 1).  cg_end ends the
+// child's capture.  Bodies nest: a body's own stream may itself be the
+// `stream` of a nested cg_begin.
+//
+// The kernel that sets the handle is the only device code here: one
+// thread, one byte read.  Nothing is allocated and nothing waits.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+__global__ void set_conditional(cudaGraphConditionalHandle handle,
+                                const unsigned char* flag) {
+  cudaGraphSetConditional(handle, *flag ? 1u : 0u);
+}
+
+__global__ void noop() {}
+
+cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
+                         const cudaGraphNode_t** deps, size_t* ndeps) {
+  cudaStreamCaptureStatus status;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo(stream, &status, nullptr, graph,
+                                             deps, nullptr, ndeps);
+#else
+  cudaError_t err =
+      cudaStreamGetCaptureInfo(stream, &status, nullptr, graph, deps, ndeps);
+#endif
+  if (err != cudaSuccess) return err;
+  if (status != cudaStreamCaptureStatusActive)
+    return cudaErrorStreamCaptureImplicit;
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// kind 0: IF, kind 1: WHILE.  `flag` is a device byte.  On success
+// *handle_out holds the node's handle (for cg_set) and `child` is
+// capturing the body.
+extern "C" int cg_begin(void* stream, void* child, int kind, const void* flag,
+                        unsigned long long* handle_out) {
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+  cudaError_t err = capture_info(st, &graph, &deps, &ndeps);
+  if (err != cudaSuccess) return (int)err;
+  cudaGraphConditionalHandle handle;
+  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+  if (err != cudaSuccess) return (int)err;
+  set_conditional<<<1, 1, 0, st>>>(handle, (const unsigned char*)flag);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  err = capture_info(st, &graph, &deps, &ndeps);
+  if (err != cudaSuccess) return (int)err;
+
+  cudaGraphNodeParams params = {};
+  params.type = cudaGraphNodeTypeConditional;
+  params.conditional.handle = handle;
+  params.conditional.type =
+      kind == 1 ? cudaGraphCondTypeWhile : cudaGraphCondTypeIf;
+  params.conditional.size = 1;
+  cudaGraphNode_t node;
+#if CUDART_VERSION >= 13000
+  err = cudaGraphAddNode(&node, graph, deps, nullptr, ndeps, &params);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamUpdateCaptureDependencies(st, &node, nullptr, 1,
+                                            cudaStreamSetCaptureDependencies);
+#else
+  err = cudaGraphAddNode(&node, graph, deps, ndeps, &params);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamUpdateCaptureDependencies(st, &node, 1,
+                                            cudaStreamSetCaptureDependencies);
+#endif
+  if (err != cudaSuccess) return (int)err;
+  err = cudaStreamBeginCaptureToGraph((cudaStream_t)child,
+                                      params.conditional.phGraph_out[0],
+                                      nullptr, nullptr, 0,
+                                      cudaStreamCaptureModeThreadLocal);
+  if (err != cudaSuccess) return (int)err;
+  *handle_out = (unsigned long long)handle;
+  return 0;
+}
+
+// Set `handle` from the device byte `flag`, in stream order on `stream`
+// (the last node of a WHILE body).
+extern "C" int cg_set(void* stream, unsigned long long handle,
+                      const void* flag) {
+  set_conditional<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (cudaGraphConditionalHandle)handle, (const unsigned char*)flag);
+  return (int)cudaGetLastError();
+}
+
+// End the body's capture on `child`.  A body that captured nothing gets
+// one empty kernel: a conditional node's body may not be empty.
+extern "C" int cg_end(void* child) {
+  cudaStream_t st = (cudaStream_t)child;
+  cudaGraph_t graph;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t ndeps = 0;
+  cudaError_t err = capture_info(st, &graph, &deps, &ndeps);
+  if (err != cudaSuccess) return (int)err;
+  if (ndeps == 0) {
+    noop<<<1, 1, 0, st>>>();
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaGraph_t body;
+  err = cudaStreamEndCapture(st, &body);
+  return (int)err;
+}
+
+extern "C" int cg_runtime_version() { return CUDART_VERSION; }
+
+extern "C" int cg_driver_version() {
+  int v = 0;
+  cudaDriverGetVersion(&v);
+  return v;
+}
+
+extern "C" const char* cg_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}

@@ -14,6 +14,7 @@ remaining blocks are filled with AD.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Callable, Optional
 
@@ -204,6 +205,28 @@ def _model_functions(model: CnlsModel, dtype, device):
             _cast(cons0), _cast(jac_cons0))
 
 
+_FNS_CACHE: "collections.OrderedDict" = collections.OrderedDict()
+
+
+def _solve_functions(model: CnlsModel, dtype, device) -> Functions:
+    """The model's :class:`Functions`, one object per distinct model
+    definition (callables, sizes, bounds), dtype and device, so that
+    solving models built from the same definition reuses one captured
+    solve graph (the graph cache is keyed by the closures)."""
+    key = (model.residuals, model.jacobian_residuals, model.eq_constraints,
+           model.jacobian_eqcons, model.ineq_constraints,
+           model.jacobian_ineqcons, model.nb_parameters, model.nb_residuals,
+           model.nb_eqcons, model.nb_ineqcons, model.x_low.tobytes(),
+           model.x_upp.tobytes(), dtype, torch.device(device))
+    fns = _FNS_CACHE.get(key)
+    if fns is None:
+        fns = _FNS_CACHE[key] = Functions(*_model_functions(model, dtype,
+                                                            device))
+        while len(_FNS_CACHE) > 32:
+            _FNS_CACHE.popitem(last=False)
+    return fns
+
+
 def build_constraint_functions(model: CnlsModel, device="cpu"):
     """Concatenate eq || ineq || bounds into single (cons, jac_cons)
     closures, stacking order [eq; ineq; x-lb; ub-x].  Bound rows are
@@ -270,8 +293,12 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
     on the host.  ``dtype``: ``torch.float64`` (default) or
     ``torch.float32``.
 
-    ``time_limit``: wall-clock budget in seconds, checked before every
-    iteration; ``None`` (default) is unlimited.
+    ``time_limit``: wall-clock budget in seconds; ``None`` (default) is
+    unlimited (the solve is then one replay of a captured graph on the
+    card).  A finite limit is checked between chunks of iterations
+    (``core.driver.solve``).  The model's callables must be capture-safe
+    (tensor code only: no tensor made from host data at a call, no
+    read-back), as the JAX package requires jittable closures.
 
     ``matmul_precision``: precision of float32 matrix products for this
     solve ("float32" = full precision, the default; "tensorfloat32" /
@@ -287,7 +314,7 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
     eps_abs_internal = 1e-10
 
     model.constraints_scaling = scaling
-    res_fn, jac_res, cons_fn, jac_cons = _model_functions(model, dtype, dev)
+    fns = _solve_functions(model, dtype, dev)
 
     n, m, q = model.nb_parameters, model.nb_residuals, model.nb_eqcons
     l = total_nb_constraints(model)
@@ -301,8 +328,6 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
     tols = Tols(*(torch.tensor(v, dtype=dtype, device=dev)
                   for v in (eps_abs_internal, rel_tol, x_tol, c_tol,
                             np.sqrt(eps))))
-    fns = Functions(res=res_fn, jac_res=jac_res, cons=cons_fn,
-                    jac_cons=jac_cons)
     result = core_solve(fns, model.starting_point, dims, opts, tols,
                         time_limit=time_limit, dtype=dtype, device=dev)
 

@@ -35,7 +35,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._device import resolve_device, to_host
+from .._device import cpu_int, resolve_device
 from .._lanes import mtv, mv
 
 # WY panel width for T/apply blocking.
@@ -114,15 +114,30 @@ def _panel_T(V: torch.Tensor, taus: torch.Tensor, nb: int,
 
 
 def _clamp_steps(nsteps, kmax: int) -> int:
-    """Host int number of Householder steps, clamped to [0, kmax]."""
+    """Host int number of Householder steps, clamped to [0, kmax], from
+    an int or a CPU tensor (a CUDA tensor raises: on the card the count
+    stays in device memory, see :func:`step_bound`)."""
     if nsteps is None:
         return kmax
-    return max(0, min(int(to_host(nsteps)), kmax))
+    return max(0, min(cpu_int(nsteps), kmax))
+
+
+def step_bound(nsteps, kmax: int):
+    """(host loop bound, device count or None) of a step loop.
+
+    An int or ``None`` gives the exact bound and no mask.  A tensor (a
+    device count, as the card's code keeps it) gives the bound ``kmax``
+    and the count as a 0-d int64 tensor: a step ``k`` is live while
+    ``k < nsteps`` and an exact no-op otherwise, so nothing is read
+    back and the result equals the exact loop's."""
+    if not isinstance(nsteps, torch.Tensor):
+        return _clamp_steps(nsteps, kmax), None
+    return kmax, nsteps.to(torch.int64)
 
 
 # ------------------------------------------------------ rank-1 loop
 
-def cpqr_packed_plain(M: torch.Tensor, nsteps: int):
+def cpqr_packed_plain(M: torch.Tensor, nsteps):
     """The rank-1 update loop on the transposed buffer, returning the
     fused kernel's packed triple — this is the kernel's plain version.
 
@@ -131,7 +146,11 @@ def cpqr_packed_plain(M: torch.Tensor, nsteps: int):
     and the reflector tail below; columns > k carry the updated trailing
     matrix; columns ``>= nsteps`` are never touched below the rows the
     reflectors reached.  ``tau`` is (kp,), zero past ``nsteps``;
-    ``perm`` is (cols,) int64."""
+    ``perm`` is (cols,) int64.
+
+    ``nsteps``: an int, or a 0-d tensor with which the loop runs all
+    kmax steps, each past ``nsteps`` an exact no-op, and reads nothing
+    back (:func:`step_bound`)."""
     rows, cols = M.shape
     kmax = min(rows, cols)
     _, kp = panel_width(kmax)
@@ -139,21 +158,32 @@ def cpqr_packed_plain(M: torch.Tensor, nsteps: int):
     Bt = M.t().clone(memory_format=torch.contiguous_format)
     taus = torch.zeros(kp, dtype=M.dtype, device=dev)
     perm = torch.arange(cols, device=dev)
-    for k in range(_clamp_steps(nsteps, kmax)):
+    ub, ns = step_bound(nsteps, kmax)
+    for k in range(ub):
         # exact trailing norms (B-rows >= k) of the unpivoted columns;
         # argmax returns the first maximum
         sub = Bt[k:, k:]
         piv = k + torch.argmax(torch.sum(sub * sub, dim=1))
-        idx = torch.stack([torch.as_tensor(k, device=dev), piv])
+        live = None if ns is None else k < ns
+        if live is not None:
+            piv = torch.where(live, piv, k)
+        idx = torch.stack([torch.full_like(piv, k), piv])
         # in-place swaps by index assignment (the reference's
         # scatter-free select updates are a TPU workaround)
         Bt[idx] = Bt[idx.flip(0)]
         perm[idx] = perm[idx.flip(0)]
         v, tau, diag = _householder_col(Bt[k], k)
         trail = Bt[k + 1:]
-        trail -= torch.outer(tau * (trail @ v), v)
-        Bt[k, k] = diag
-        Bt[k, k + 1:] = v[k + 1:]
+        upd = torch.outer(tau * (trail @ v), v)
+        if live is None:
+            trail -= upd
+            Bt[k, k] = diag
+            Bt[k, k + 1:] = v[k + 1:]
+        else:
+            tau = torch.where(live, tau, torch.zeros_like(tau))
+            trail -= torch.where(live, upd, torch.zeros_like(upd))
+            Bt[k, k] = torch.where(live, diag, Bt[k, k])
+            Bt[k, k + 1:] = torch.where(live, v[k + 1:], Bt[k, k + 1:])
         taus[k] = tau
     return Bt, taus, perm
 
@@ -228,7 +258,7 @@ def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
             k = min(s + j, cols - 1)
             # ---- pivot among trailing columns (downdated norms) ------
             piv = k + torch.argmax(nrm2[k:])
-            idx = torch.stack([torch.as_tensor(k, device=dev), piv])
+            idx = torch.stack([torch.full_like(piv, k), piv])
             swp = idx.flip(0)
             B[:, idx] = B[:, swp]
             F[idx] = F[swp]
@@ -306,7 +336,7 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
     if kmax >= LARGE_KMAX:
         if M.is_cuda:
             from .cpqr_hopper import cpqr_hopper
-            steps = _clamp_steps(nsteps, kmax)
+            steps = kmax if nsteps is None else nsteps
             return unpack_packed(*cpqr_hopper(M.contiguous(), steps), nb=nb)
         return _cpqr_xla_panels(M, nb, nsteps)
     return _cpqr_xla(M, nb, nsteps)

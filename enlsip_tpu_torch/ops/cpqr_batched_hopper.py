@@ -26,7 +26,9 @@ Beside the kernel:
   arguments;
 * :func:`launch`, the kernel alone into preallocated outputs;
 * ``cpqr_batched_packed.launches``, a plain integer counting kernel
-  launches (one per batch factorization sent to the card), and
+  launches (one per batch factorization sent to the card; a launch
+  captured into a CUDA graph counts on the device at every replay, see
+  ``_graph.launches``), and
   ``cpqr_batched_packed_plain.cuda_calls``, the plain version's calls on
   a CUDA tensor.
 
@@ -44,7 +46,9 @@ import functools
 
 import torch
 
-from .._device import resolve_device, to_host
+from .. import _graph
+from .._device import cpu_int, resolve_device
+from .._lanes import const
 from .blocked_qr import CPQRF, _panel_T
 
 # Static gates of the kernel path (the TPU kernel's numbers, kept):
@@ -143,8 +147,8 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
     ``tau = 0`` and an exact no-op.  ``M`` is not modified.
 
     ``nsteps`` (B,) int, optional: lane b takes only its first
-    ``nsteps[b]`` steps (a mask; the loop stops at the largest count,
-    read back once).  The kernel takes no such argument — on masked
+    ``nsteps[b]`` steps (a mask; on the CPU the loop stops at the largest
+    count, on the card it runs all kmax steps and reads nothing back).  The kernel takes no such argument — on masked
     buffers the steps past the live columns are no-ops — so this is for
     batches beyond the kernel's gate, where skipping them saves most of a
     long loop.
@@ -164,8 +168,12 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
     cidx = torch.arange(cols, device=dev)
     last = kmax
     if nsteps is not None:
-        nsteps = torch.as_tensor(nsteps, device=dev).expand(B)
-        last = 0 if B == 0 else max(0, min(kmax, int(to_host(nsteps.max()))))
+        nsteps = const(nsteps, dev).expand(B)
+        if not M.is_cuda and B > 0:
+            # on the CPU the loop stops at the largest count; on the card
+            # it runs all kmax steps (the masked ones are no-ops) and
+            # reads nothing back
+            last = max(0, min(kmax, cpu_int(nsteps.max())))
     zero = torch.zeros((), dtype=dtype, device=dev)
     one = torch.ones((), dtype=dtype, device=dev)
     for k in range(last):
@@ -286,7 +294,7 @@ def _launch(M, packed, tau, perm, G: int, L: int) -> None:
     if M.device.index != torch.cuda.current_device():
         with torch.cuda.device(M.device):
             return _launch(M, packed, tau, perm, G, L)
-    cpqr_batched_packed.launches += 1
+    _graph.count_launch(cpqr_batched_packed)
     # the raw current stream: building a torch.cuda.Stream costs more
     # host time than the launch itself
     err = getattr(lib, _CTYPES[M.dtype])(
@@ -300,6 +308,7 @@ def _launch(M, packed, tau, perm, G: int, L: int) -> None:
 
 
 cpqr_batched_packed.launches = 0
+_graph.register_counts(cpqr_batched_packed)
 
 
 def unpack_batched(packed: torch.Tensor, tau: torch.Tensor,

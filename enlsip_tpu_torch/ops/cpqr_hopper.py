@@ -24,8 +24,15 @@ Beside the kernel:
   for a tensor that lies on the CPU.  For a CUDA tensor they launch the
   kernel or raise;
 * ``cpqr_hopper.launches``, a plain integer counting kernel launches
-  (one per factorization sent to the card, by either route), and
-  ``cpqr_hopper.last_route``, the name of the route the last one took.
+  (one per factorization sent to the card, by either route; a launch
+  captured into a CUDA graph counts on the device at every replay, see
+  ``_graph.launches``), and ``cpqr_hopper.last_route``, the name of the
+  route the last one took.
+
+The number of steps is a 0-d int32 tensor on the card that the kernels
+read (``pallas_qr2.py`` takes it in SMEM), and the resident route's
+grid-barrier counter is zeroed by a memset enqueued before the launch,
+so both routes can be captured into a graph and replayed.
 """
 
 from __future__ import annotations
@@ -34,6 +41,8 @@ import ctypes
 
 import torch
 
+from .. import _graph
+from .._lanes import const
 from .blocked_qr import cpqr_packed_plain, panel_width
 
 _STREAM = {torch.float32: "cpqr_f32", torch.float64: "cpqr_f64"}
@@ -48,10 +57,10 @@ def _library():
     if not getattr(lib, "_enlsip_bound", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
         for fn in _STREAM.values():
-            getattr(lib, fn).argtypes = [ptr, ptr, ptr, ptr, ptr, i, i, i, ptr]
+            getattr(lib, fn).argtypes = [ptr] * 6 + [i, i, ptr]
             getattr(lib, fn).restype = i
         for fn in _RESIDENT.values():
-            getattr(lib, fn).argtypes = [ptr] * 8 + [i] * 5 + [ptr]
+            getattr(lib, fn).argtypes = [ptr] * 9 + [i] * 4 + [ptr]
             getattr(lib, fn).restype = i
         lib.cpqr_resident_shared_bytes.argtypes = [i, i, i, i]
         lib.cpqr_resident_shared_bytes.restype = ctypes.c_longlong
@@ -115,7 +124,7 @@ def fits_resident(rows: int, cols: int, dtype, sm_count: int,
             <= shared_bytes_per_block)
 
 
-def _checked(name: str, M: torch.Tensor, nsteps: int) -> int:
+def _checked(name: str, M: torch.Tensor, nsteps):
     if M.ndim != 2 or M.shape[0] == 0 or M.shape[1] == 0:
         raise ValueError(f"{name} takes a non-empty matrix, got shape "
                          f"{tuple(M.shape)}")
@@ -129,19 +138,22 @@ def _checked(name: str, M: torch.Tensor, nsteps: int) -> int:
             raise ValueError(f"{name} takes a contiguous matrix")
         if rows * cols >= 2 ** 31:
             raise ValueError(f"{name} indexes rows and columns with int32")
-    return max(0, min(int(nsteps), rows, cols))
+        # the kernels read the count from device memory and clamp it
+        return const(nsteps, M.device, torch.int32)
+    return nsteps
 
 
 def _launched(route: str) -> None:
-    cpqr_hopper.launches += 1
+    _graph.count_launch(cpqr_hopper)
     cpqr_hopper.last_route = route
 
 
-def _resident(M: torch.Tensor, nsteps: int, max_blocks: int | None = None):
+def _resident(M: torch.Tensor, nsteps, max_blocks: int | None = None):
     """The resident launch on a CUDA matrix, on at most ``max_blocks``
     blocks (default: one an SM).  The result does not depend on the block
     count."""
     rows, cols = M.shape
+    nsteps = const(nsteps, M.device, torch.int32)
     sms, shared, coop = _device_limits(M.device)
     blocks = min(sms, cols, max_blocks or sms)
     need = _resident_shared_bytes(rows, cols, blocks, M.element_size())
@@ -168,12 +180,13 @@ def _resident(M: torch.Tensor, nsteps: int, max_blocks: int | None = None):
         err = getattr(lib, _RESIDENT[M.dtype])(
             M.data_ptr(), Bt.data_ptr(), tau.data_ptr(), perm.data_ptr(),
             cand.data_ptr(), cval.data_ptr(), cpos.data_ptr(),
-            counter.data_ptr(), rows, cols, nsteps, kp, blocks, stream)
+            counter.data_ptr(), nsteps.data_ptr(), rows, cols, kp, blocks,
+            stream)
     _raise_on(lib, err, "cpqr resident kernel launch")
     return Bt, tau, perm
 
 
-def cpqr_hopper_resident(M: torch.Tensor, nsteps: int):
+def cpqr_hopper_resident(M: torch.Tensor, nsteps):
     """:func:`cpqr_hopper` by the resident route; raises for a CUDA matrix
     that does not fit the card's shared memory."""
     nsteps = _checked("cpqr_hopper_resident", M, nsteps)
@@ -182,7 +195,7 @@ def cpqr_hopper_resident(M: torch.Tensor, nsteps: int):
     return _resident(M, nsteps)
 
 
-def cpqr_hopper_stream(M: torch.Tensor, nsteps: int):
+def cpqr_hopper_stream(M: torch.Tensor, nsteps):
     """:func:`cpqr_hopper` by the stream route (any shape)."""
     nsteps = _checked("cpqr_hopper_stream", M, nsteps)
     if M.device.type == "cpu":
@@ -203,14 +216,17 @@ def cpqr_hopper_stream(M: torch.Tensor, nsteps: int):
         _launched("stream")
         err = getattr(lib, _STREAM[M.dtype])(
             Bt.data_ptr(), tau.data_ptr(), perm.data_ptr(), pval.data_ptr(),
-            pidx.data_ptr(), rows, cols, nsteps, stream)
+            pidx.data_ptr(), nsteps.data_ptr(), rows, cols, stream)
     _raise_on(lib, err, "cpqr stream kernel launch")
     return Bt, tau, perm.to(torch.int64)
 
 
-def cpqr_hopper(M: torch.Tensor, nsteps: int):
+def cpqr_hopper(M: torch.Tensor, nsteps):
     """Packed CPQR of ``M`` (rows, cols) with ``nsteps`` Householder
-    steps (host int, clamped to min(rows, cols)).
+    steps (an int or a 0-d tensor, clamped to [0, min(rows, cols)]; on
+    the card the kernels read it from device memory, as the TPU kernel
+    reads its count from SMEM, so a count computed on the device is
+    never read back).
 
     Returns ``(Bt, tau, perm)``: ``Bt`` (cols, rows) packed as
     :func:`cpqr_packed_plain` describes, ``tau`` (kp,), ``perm`` (cols,)
@@ -254,3 +270,4 @@ def _barrier_probe_us(kind: int, blocks: int, iters: int = 4000) -> float:
 
 cpqr_hopper.launches = 0
 cpqr_hopper.last_route = None
+_graph.register_counts(cpqr_hopper)

@@ -24,7 +24,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from .._lanes import ex
+from .._device import cpu_int
+from .._lanes import const, ex
 from .blocked_qr import _householder_col
 
 
@@ -49,14 +50,14 @@ def cpqr(M: torch.Tensor, aug: Optional[torch.Tensor] = None, *,
     column norms then orders them last.  ``aug`` columns are not pivoted
     and not factored; they receive every reflector (``Q^T @ aug``)."""
     rows, cols = M.shape
-    kmax = min(rows, cols) if nsteps is None else int(nsteps)
+    kmax = min(rows, cols) if nsteps is None else cpu_int(nsteps)
     A = M.clone()
     G = None if aug is None else aug.clone()
     perm = torch.arange(cols, device=M.device)
     for k in range(kmax):
         sub = A[k:, k:]
         piv = k + torch.argmax(torch.sum(sub * sub, dim=0))
-        idx = torch.stack([torch.as_tensor(k, device=M.device), piv])
+        idx = torch.stack([torch.full_like(piv, k), piv])
         A[:, idx] = A[:, idx.flip(0)]
         perm[idx] = perm[idx.flip(0)]
         v, tau, _ = _householder_col(A[:, k], k)
@@ -78,7 +79,7 @@ def pseudo_rank(diag: torch.Tensor, length, eps_rank) -> torch.Tensor:
     per-lane int64 tensor."""
     k = diag.shape[-1]
     dev = diag.device
-    length = torch.as_tensor(length, device=dev)
+    length = const(length, dev)
     if k == 0:
         return torch.zeros(diag.shape[:-1], dtype=torch.int64, device=dev)
     idx = torch.arange(k, device=dev)

@@ -45,7 +45,8 @@ import torch
 
 from .._dist import (all_reduce, gather_slots, row_mesh_in_scope, rows_sum)
 from .._lanes import dot, ex, mtv
-from .blocked_qr import CPQRF, cpqr_blocked, qt_apply
+from .blocked_qr import (CPQRF, _householder_col, _panel_T, cpqr_blocked,
+                         qt_apply)
 
 
 class TSQRF(NamedTuple):
@@ -82,9 +83,72 @@ def _axis_mesh():
     return mesh
 
 
+# Columns a panel of the card's tall QR (:func:`_householder_thin`).
+_THIN_NB = 16
+
+
+def _householder_thin(M: torch.Tensor):
+    """The unpivoted blocked Householder QR of a tall ``M`` (m, n): panels
+    of ``_THIN_NB`` columns, each factored by reflector steps (a
+    matrix-vector product and a rank-1 update of the panel's later
+    columns), then the trailing columns updated once by the panel's
+    compact-WY form Q_p^T = I - V T^T V^T (two matrix products).  It
+    works on a transposed copy, where a column is a contiguous row.
+    Returns (V (m, n) unit lower, tau (n,), R (n, n)), the reflectors of
+    LAPACK's convention, as geqrf gives them.  This is the card's tall
+    QR: cuSOLVER's geqrf of more than 4,096 rows, and its orgqr, cannot
+    be captured inside a conditional node's body."""
+    m, n = M.shape
+    At = M.t().contiguous()          # (n, m): column k of M is row k
+    taus = M.new_zeros(n)
+    for j0 in range(0, n, _THIN_NB):
+        j1 = min(n, j0 + _THIN_NB)
+        Vp = M.new_zeros((j1 - j0, m))
+        for k in range(j0, j1):
+            v, tau, diag = _householder_col(At[k], k)
+            if k + 1 < j1:
+                rest = At[k + 1:j1, k:]
+                w = rest @ v[k:]
+                rest.addmm_(w[:, None], (tau * v[k:])[None, :], alpha=-1.0)
+            At[k, k] = diag
+            At[k, k + 1:] = v[k + 1:]
+            Vp[k - j0] = v
+            taus[k] = tau
+        if j1 < n:
+            T = _panel_T(Vp.t(), taus[j0:j1], j1 - j0)[0]
+            trail, Vj = At[j1:, j0:], Vp[:, j0:]
+            trail.addmm_((trail @ Vj.t()) @ T, Vj, alpha=-1.0)
+    r = torch.triu(At[:, :n].t())
+    V = At.t()
+    V[:n].copy_(torch.tril(V[:n], -1))
+    V.diagonal().fill_(1.0)      # LAPACK's unit diagonal, also where tau = 0
+    return V, taus, r
+
+
+def thin_qr(M: torch.Tensor):
+    """``torch.linalg.qr(M, mode="reduced")`` of a tall ``M`` (m, n), m >=
+    n, by Householder reflectors: LAPACK's geqrf on the CPU, the loop of
+    :func:`_householder_thin` on a CUDA device.  R is the reflectors'
+    upper triangle and Q's first n columns are E - V (T V[:n]^T), the
+    compact-WY form Q = I - V T V^T of the reflectors (one matrix
+    product)."""
+    n = M.shape[-1]
+    if M.is_cuda:
+        V, tau, r = _householder_thin(M)
+    else:
+        a, tau = torch.geqrf(M)
+        V = torch.tril(a, -1)
+        V.diagonal(dim1=-2, dim2=-1).fill_(1.0)
+        r = torch.triu(a[..., :n, :])
+    T = _panel_T(V, tau, n)[..., 0, :, :]
+    q = -(V @ (T @ V[..., :n, :].transpose(-1, -2)))
+    q.diagonal(dim1=-2, dim2=-1).add_(1.0)
+    return q, r
+
+
 def tsqr_cpqr(M: torch.Tensor, nsteps, axis: Optional[str] = None) -> TSQRF:
     """Column-pivoted QR of a tall ``M`` (m, n), m >= n: one thin
-    ``torch.linalg.qr`` of the whole matrix, then the pivoted QR of its
+    QR of the whole matrix (:func:`thin_qr`), then the pivoted QR of its
     (n, n) R, with ``nsteps`` bounding the pivot steps (live columns).
     Column norms, hence pivoting and rank decisions, are those of M.
 
@@ -93,7 +157,7 @@ def tsqr_cpqr(M: torch.Tensor, nsteps, axis: Optional[str] = None) -> TSQRF:
     and the (D n, n) stack of the ranks' R factors, whose columns have
     the whole matrix's norms, by one replicated pivoted QR."""
     if axis is None:
-        q, r = torch.linalg.qr(M, mode="reduced")
+        q, r = thin_qr(M)
         return TSQRF(qloc=q, f2=cpqr_blocked(r, nsteps=nsteps,
                                              device=M.device))
     mesh = _axis_mesh()
@@ -101,7 +165,7 @@ def tsqr_cpqr(M: torch.Tensor, nsteps, axis: Optional[str] = None) -> TSQRF:
     if rows < n:
         raise ValueError(f"tsqr needs m / D >= n row panels, got {rows} "
                          f"rows a rank for n = {n}")
-    q, r = torch.linalg.qr(M, mode="reduced")
+    q, r = thin_qr(M)
     stack = gather_slots(r, mesh).reshape(mesh.size * n, n)
     return TSQRF(qloc=q, f2=cpqr_blocked(stack, nsteps=nsteps,
                                          device=M.device), axis=axis)

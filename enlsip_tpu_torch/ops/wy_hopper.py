@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from .. import _graph
 # dtype -> (library of csrc/, entry point); the float64 instantiations
 # are a library of their own so that the two build side by side
 _CTYPES = {torch.float32: ("wy_gram", "wy_gram_f32"),
@@ -224,7 +225,7 @@ def _launch(entry, count, variant, J, V, T, rx, rowscale):
             gp = torch.empty(n * n + n, dtype=J.dtype, device=J.device)
         ptr = lambda t: 0 if t is None else t.data_ptr()
         stream = torch.cuda.current_stream().cuda_stream
-        setattr(entry, count, getattr(entry, count) + 1)
+        _graph.count_launch(entry, count)
         err = getattr(lib, _CTYPES[J.dtype][1])(
             J.data_ptr(), Vc.data_ptr(), W.data_ptr(), ptr(rxc), ptr(sc),
             ptr(out), ptr(ws), ptr(gp), rows, n, k, variant, nparts, stream)
@@ -286,17 +287,24 @@ wy_right_apply.launches = 0
 wy_gram_project.launches = 0
 wy_gram_project.launches_rowscale = 0
 wy_gram_project_noapply.launches = 0
+_graph.register_counts(wy_right_apply)
+_graph.register_counts(wy_gram_project, "launches", "launches_rowscale")
+_graph.register_counts(wy_gram_project_noapply)
 
 
 def launch_counts() -> dict:
-    """The four launch counts by kernel name."""
-    return {"wy_right_apply": wy_right_apply.launches,
-            "wy_gram_project": wy_gram_project.launches,
-            "wy_gram_project_rowscale": wy_gram_project.launches_rowscale,
-            "wy_gram_project_noapply": wy_gram_project_noapply.launches}
+    """The four launch counts by kernel name, replays of captured graphs
+    included (``_graph.launches``)."""
+    return {"wy_right_apply": _graph.launches(wy_right_apply),
+            "wy_gram_project": _graph.launches(wy_gram_project),
+            "wy_gram_project_rowscale": _graph.launches(wy_gram_project,
+                                                        "launches_rowscale"),
+            "wy_gram_project_noapply": _graph.launches(
+                wy_gram_project_noapply)}
 
 
 def reset_launch_counts() -> None:
+    _graph.reset_launches()
     wy_right_apply.launches = 0
     wy_gram_project.launches = 0
     wy_gram_project.launches_rowscale = 0

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .._device import to_host
 from .._dist import Mesh, make_mesh, row_scope
 from ..core.driver import Functions, init_carry, iterate_body
 from ..core.types import (Carry, Dims, Options, Tols,
@@ -100,7 +101,7 @@ def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
                 f"res returned {carry.rx.shape[-1]} rows; a rank of "
                 f"{mesh.size} holds {rows} (pass rank-local closures, "
                 "e.g. local_functions)")
-        while carry.exit_code == 0:
+        while to_host(carry.exit_code) == 0:
             carry = iterate_body(carry, fns, dims, opts, tols)
             if on_iteration is not None:
                 on_iteration(carry)

@@ -12,6 +12,8 @@ import math
 import numpy as np
 import torch
 
+from ._const import on_device
+
 # ---------------------------------------------------------------- HS65
 
 HS65_XSTAR = np.array([3.650461821, 3.65046168, 4.6204170507])
@@ -22,10 +24,13 @@ def hs65_residuals(x):
     return torch.stack([x[0] - x[1], (x[0] + x[1] - 10.0) / 3.0, x[2] - 5.0])
 
 
+_HS65_JAC = np.array([[1.0, -1.0, 0.0],
+                      [1.0 / 3.0, 1.0 / 3.0, 0.0],
+                      [0.0, 0.0, 1.0]])
+
+
 def hs65_jac_residuals(x):
-    return torch.tensor([[1.0, -1.0, 0.0],
-                         [1.0 / 3.0, 1.0 / 3.0, 0.0],
-                         [0.0, 0.0, 1.0]], dtype=x.dtype, device=x.device)
+    return on_device(_HS65_JAC, x)
 
 
 def hs65_ineq(x):
@@ -71,8 +76,8 @@ OSBORNE2_X0 = np.array([
 
 
 def osborne2_residuals(x):
-    t = torch.as_tensor(OSBORNE2_T, dtype=x.dtype, device=x.device)
-    y = torch.as_tensor(OSBORNE2_Y, dtype=x.dtype, device=x.device)
+    t = on_device(OSBORNE2_T, x)
+    y = on_device(OSBORNE2_Y, x)
     model = (x[0] * torch.exp(-x[4] * t)
              + x[1] * torch.exp(-x[5] * (t - x[8]) ** 2)
              + x[2] * torch.exp(-x[6] * (t - x[9]) ** 2)
@@ -106,7 +111,7 @@ def chained_rosenbrock(n: int):
         k = torch.arange(nn - 1, device=x.device)
         top = torch.zeros((nn - 1, nn), dtype=x.dtype, device=x.device)
         top[k, k] = 20.0 * x[:-1]
-        top[k, k + 1] = -10.0
+        top[k, k + 1] = torch.full_like(x[:-1], -10.0)
         bot = torch.eye(nn - 1, nn, dtype=x.dtype, device=x.device)
         return torch.cat([top, bot])
 
@@ -149,11 +154,10 @@ def chained_wood(n: int = 20):
     constraints."""
     assert n % 2 == 0 and n >= 8
     N = n // 2 - 1
-    j = np.arange(N)  # 0-based block index
     s = math.sqrt(10.0)
 
     def residuals(x):
-        jj = torch.as_tensor(j, device=x.device)
+        jj = torch.arange(N, device=x.device)
         x1 = x[2 * jj]
         x2 = x[2 * jj + 1]
         x3 = x[2 * jj + 2]

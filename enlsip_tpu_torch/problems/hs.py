@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._const import on_device
+
 from .classic import HS65, HS65_FSTAR
 
 _SQRT2 = float(np.sqrt(2.0))
@@ -306,8 +308,8 @@ _HS57_B = np.array([
 
 def _hs57_residuals(x):
     # exp(-x1 (a - 8)) overflows float32 for x1 below about -2.6 (a <= 42)
-    a = torch.as_tensor(_HS57_A, dtype=x.dtype, device=x.device)
-    b = torch.as_tensor(_HS57_B, dtype=x.dtype, device=x.device)
+    a = on_device(_HS57_A, x)
+    b = on_device(_HS57_B, x)
     return b - x[0] - (0.49 - x[0]) * torch.exp(-x[1] * (a - 8.0))
 
 

@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._const import on_device
+
 N_PARAMS = 10
 N_POINTS = 40
 _T = np.linspace(0.0, 2.0, N_POINTS)
@@ -32,12 +34,12 @@ X_UPP = np.concatenate([np.full(5, 5.0), np.full(5, 20.0)])
 def _model(x):
     a = x[:5]
     b = x[5:]
-    t = torch.as_tensor(_T, dtype=x.dtype, device=x.device)
+    t = on_device(_T, x)
     return torch.sum(a[:, None] * torch.exp(-b[:, None] * t[None, :]), dim=0)
 
 
 def residuals(x):
-    return torch.as_tensor(_Y, dtype=x.dtype, device=x.device) - _model(x)
+    return on_device(_Y, x) - _model(x)
 
 
 def model_kwargs():

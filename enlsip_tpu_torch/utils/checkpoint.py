@@ -25,10 +25,6 @@ from ..core.types import Carry, Counters, PrevIter
 FORMAT_VERSION = 2
 
 # Fields one solve keeps as host ints ((B,) tensors in a batch).
-_HOST_INT_FIELDS = {"nb_newton_steps", "nb_iter", "exit_code", "n_display",
-                    *(f"counters.{k}" for k in Counters._fields)}
-
-
 def _example_carry() -> Carry:
     """A structure-only Carry (leaf values unused)."""
     return Carry(
@@ -65,11 +61,9 @@ def _like(a: np.ndarray, like):
     return torch.as_tensor(a).to(device=like.device, dtype=like.dtype)
 
 
-def _canonical(a: np.ndarray, name: str, dev):
-    """A file leaf as ``init_carry`` / ``init_batch`` give it: host ints
-    for a single solve's host-int fields, int64 for integer tensors."""
-    if name in _HOST_INT_FIELDS and a.ndim == 0:
-        return int(a)
+def _canonical(a: np.ndarray, dev):
+    """A file leaf as ``init_carry`` / ``init_batch`` give it: int64 for
+    integer tensors."""
     t = torch.as_tensor(a)
     if a.dtype.kind in "iu":
         t = t.to(torch.int64)
@@ -82,9 +76,9 @@ def load_carry(path: str, like: Carry | None = None,
 
     ``like`` (any carry with the same structure, e.g. a fresh
     ``init_carry`` / ``init_batch`` result) gives each leaf its dtype and
-    device and tells host ints from tensors.  Without it the canonical
-    Carry field order is used: integer leaves become int64 tensors (a
-    single solve's host-int fields Python ints), on ``device`` (default:
+    device (and tells host ints from tensors, for carries that hold
+    some).  Without it the canonical Carry field order is used: integer
+    leaves become int64 tensors, on ``device`` (default:
     the card; raises if there is none).  Files written before the version
     entry existed (v1: trailing ``time_exceeded`` leaf) are migrated."""
     data = np.load(path)
@@ -111,4 +105,4 @@ def load_carry(path: str, like: Carry | None = None,
     dev = resolve_device(device)
     spec = pytree.tree_flatten(_example_carry())[1]
     return pytree.tree_unflatten(
-        [_canonical(a, n, dev) for a, n in zip(leaves, names)], spec)
+        [_canonical(a, dev) for a in leaves], spec)

@@ -37,10 +37,7 @@ STRUCTURES = {cls.__name__: cls for cls in (
 # reference keeps 0-d arrays.  In a batched structure (a leading lane
 # axis on every field) they stay per-lane tensors on both sides.
 HOST_FIELDS = {
-    "Carry": {"nb_newton_steps", "nb_iter", "exit_code", "n_display"},
-    "Counters": {"nb_res", "nb_jacres", "nb_cons", "nb_jaccons"},
     "WorkingSetRound": {"deleted"},
-    "AnalysResult": {"newton_taken"},
     "SteplengthResult": {"updated_progress"},
 }
 

@@ -6,7 +6,10 @@ guarded function checks its output on the host and raises
 ``FloatingPointError`` naming the function ("residuals",
 "jac_residuals", "constraints", "jac_constraints") at the first
 non-finite value.  Use it while developing a model and drop it for
-production runs: each check reads a flag back from the device.
+production runs: in an eager loop each check reads a flag back from the
+device; in a device-resident solve (a captured graph) the checks set
+device flags that are read back once after the replay
+(``_graph.guard``), and the first function whose flag is set is named.
 
 Where the check sits.  Under ``torch.func`` transforms (the batch's
 ``vmap`` over lanes, the Newton direction's Hessians) a Python ``if`` on
@@ -24,6 +27,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import _graph
 from ..core.driver import Functions
 
 
@@ -43,7 +47,10 @@ class _Guarded:
 
     def __call__(self, *args):
         out = self.fn(*args)
-        if not bool(torch.all(torch.isfinite(_values(out)))):
+        bad = ~torch.all(torch.isfinite(_values(out)))
+        if _graph.device_resident():
+            _graph.guard(self.name, bad)
+        elif bool(bad):
             raise FloatingPointError(f"non-finite values from {self.name}(x)")
         return out
 

@@ -74,7 +74,7 @@ def twin_data(seed, n, m, q, n_ineq, lower=(), upper=(), dup_eq=False,
     return d, x0
 
 
-def twin_callables(d, lower, upper, xp, cat):
+def twin_callables(d, lower, upper, xp, cat, as_index=lambda a: a):
     """(res, cons) on the array library ``xp`` from data ``d`` (arrays of
     that library; for JAX they may be traced):
 
@@ -83,8 +83,11 @@ def twin_callables(d, lower, upper, xp, cat):
         ineq(x) = g - G x - 0.1 (x . x)
         bounds x_i >= lo_i (i in ``lower``), x_i <= up_i (i in ``upper``)
 
-    stacked as [eq; ineq; x - lo; up - x]."""
+    stacked as [eq; ineq; x - lo; up - x].  ``as_index`` makes the bound
+    index arrays the library's own, once (a torch closure then copies no
+    host data at a call, as a captured solve requires)."""
     lower, upper = np.asarray(lower, int), np.asarray(upper, int)
+    lower_i, upper_i = as_index(lower), as_index(upper)
 
     def res(x):
         return d["B"] @ x - d["y"] + 0.3 * xp.sin(d["C"] @ x)
@@ -97,9 +100,9 @@ def twin_callables(d, lower, upper, xp, cat):
         if d["G"].shape[0]:
             parts.append(d["g"] - d["G"] @ x - 0.1 * xp.sum(x * x))
         if len(lower):
-            parts.append(x[lower] - d["lo"])
+            parts.append(x[lower_i] - d["lo"])
         if len(upper):
-            parts.append(d["up"] - x[upper])
+            parts.append(d["up"] - x[upper_i])
         return cat(parts)
 
     return res, cons
@@ -117,7 +120,7 @@ def twin_jax_functions(d, lower, upper):
 def twin_torch_functions(d, lower, upper):
     res, cons = twin_callables(
         {k: torch.tensor(v, dtype=F64) for k, v in d.items()}, lower, upper,
-        torch, torch.cat)
+        torch, torch.cat, torch.as_tensor)
     return res, torch.func.jacfwd(res), cons, torch.func.jacfwd(cons)
 
 
@@ -134,21 +137,16 @@ def twin_functions(seed, n, m, q, n_ineq, lower=(), upper=(), dup_eq=False,
 # ------------------------------------------------------ batched solves
 
 def lane_of(carry, b):
-    """Lane ``b`` of a batched port ``Carry`` as one solve's carry (host
-    ints where one solve keeps host ints, its own display buffer)."""
-    from enlsip_tpu_torch.core.types import Counters
-
+    """Lane ``b`` of a batched port ``Carry`` as one solve's carry (0-d
+    tensors where the batch keeps per-lane ones, its own display
+    buffer)."""
     def pick(v):
         if isinstance(v, tuple):
             return type(v)(*(pick(u) for u in v))
         return v[b]
 
     one = pick(carry)
-    return one._replace(
-        nb_newton_steps=int(one.nb_newton_steps), nb_iter=int(one.nb_iter),
-        exit_code=int(one.exit_code), n_display=int(one.n_display),
-        counters=Counters(*(int(k) for k in one.counters)),
-        display=one.display.clone())
+    return one._replace(display=one.display.clone())
 
 
 def flat_fields(nt, prefix=""):
