@@ -85,9 +85,19 @@ giant-m problem with 2,500,000 rows a rank in configurations a-d
 solve, ||dx|| <= 1e-6 ||x||, each rank launching its configuration's WY
 kernel and no other; collectives and read-backs an iteration, peak memory,
 seconds), then ``tsqr=True`` on (c) and (a) at float64 on 200,000 rows
-(||dx|| <= 1e-8 ||x||, iterations equal).  The ``kernels`` line's B2
-row counts the sharded paths' launches by rank, and B3-B6 rows carry
-``launches_rowsharded_by_rank``.
+(||dx|| <= 1e-8 ||x||, iterations equal).  The gloo ranks run the eager
+loops (``graph=False``: gloo moves the card's tensors through host
+memory, which a graph cannot hold).  ``sharded_graph``: the NCCL rank
+runs ``sharded_hs65`` (float32, float64), ``sharded_hetero_suite`` and
+``rowsharded_giant_m`` (a)-(d) at 5,000,000 x 100 x 50 through the
+captured graph (its first, capturing call and a replay) and the eager
+loop on the same inputs: results equal to the bit (x, exit codes,
+iterations, trips), one read-back a solve on the graph path, collectives
+and B2 / B3-B6 launches counted on the card at replay, captures, capture
+and wall seconds, peak memory.  The ``kernels`` line's B2
+row counts the sharded paths' launches by rank and at the NCCL rank's
+replays, and B3-B6 rows carry ``launches_rowsharded_by_rank`` and
+``launches_rowsharded_graph_nccl_replay``.
 
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
@@ -973,7 +983,7 @@ def solve_giant_m():
     return out, gm, kept
 
 
-def _wy_kernel_entries(wcases, giant, gloo):
+def _wy_kernel_entries(wcases, giant, gloo, graph_rows):
     lines = {"wy_right_apply": 52, "wy_gram_project": 60,
              "wy_gram_project_rowscale": 86, "wy_gram_project_noapply": 118}
     by_kernel = {row["kernel"]: row for row in giant}
@@ -990,6 +1000,9 @@ def _wy_kernel_entries(wcases, giant, gloo):
             "launches_rowsharded_by_rank": [
                 r["giant"][by_kernel[name]["config"]]["launches"][name]
                 for r in gloo],
+            "launches_rowsharded_graph_nccl_replay": next(
+                row["graph"]["launches"][name] for row in graph_rows
+                if row["kernel"] == name),
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "tolerance": "relative to max |JQ1| (JQ1) and to the norms of G "
                          "and p: float64 vs the plain version 1e-11; float32 "
@@ -1701,7 +1714,8 @@ def _reset_counts():
 def _rank_hs65(rank, world):
     """HS65 x 4096 lanes split over the ranks, float32 and float64, after
     a warm-up solve of the same lanes; counts set to 0 just before the
-    timed solve."""
+    timed solve.  gloo ranks take the eager loop (``graph=False``: gloo
+    moves the card's tensors through host memory)."""
     mesh = batch_mesh()
     out = {}
     for dtype in (torch.float32, torch.float64):
@@ -1710,7 +1724,8 @@ def _rank_hs65(rank, world):
 
         def solve(x0):
             res = solve_batched_sharded(fns, x0, HS65_DIMS, et.Options(),
-                                        tols, mesh=mesh, dtype=dtype)
+                                        tols, mesh=mesh, dtype=dtype,
+                                        graph=False)
             torch.cuda.synchronize()
             return res
 
@@ -1737,13 +1752,13 @@ def _rank_hetero(rank, world):
     opts = et.Options(max_iter=60)
     warm = hs_scenario_batch(HETERO_FAMILIES, per_family=8, seed=1)
     solve_suite_fused(warm, dataclasses.replace(opts, max_iter=2), _tols_fn,
-                      mesh=mesh, dtype=torch.float32)
+                      mesh=mesh, dtype=torch.float32, graph=False)
     fused = fuse_families(fams)
     torch.cuda.synchronize()
     _reset_counts()
     t0 = time.time()
     res = solve_suite_fused(fams, opts, _tols_fn, mesh=mesh,
-                            dtype=torch.float32, fused=fused)
+                            dtype=torch.float32, fused=fused, graph=False)
     torch.cuda.synchronize()
     return {"seconds": time.time() - t0, "trips": run_batch.last_trips,
             "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
@@ -1753,12 +1768,14 @@ def _rank_hetero(rank, world):
                           "f": r.f.double().cpu()} for n, r in res.items()}}
 
 
-def _rowsharded_solve(gm, config, mesh, tsqr=False, dtype=torch.float32):
+def _rowsharded_solve(gm, config, mesh, tsqr=False, dtype=torch.float32,
+                      graph=False):
     factored, second, tall_qr, _ = GIANT_CONFIGS[config]
     carry = solve_rowsharded(
         gm.factored if factored else gm.dense, gm.x0, gm.dims,
         et.Options(second_derivatives=second, max_iter=8, tall_qr=tall_qr),
-        et.Tols.for_dtype(dtype, DEV), mesh=mesh, dtype=dtype, tsqr=tsqr)
+        et.Tols.for_dtype(dtype, DEV), mesh=mesh, dtype=dtype, tsqr=tsqr,
+        graph=graph)
     torch.cuda.synchronize()
     return carry
 
@@ -1809,14 +1826,114 @@ def _rank_giant(rank, world):
     return out
 
 
+def _graph_vs_eager(solve, keep):
+    """``solve(graph)`` three times on the same inputs: the graph path's
+    first call (capture and replay), its second (a replay alone) and the
+    eager loop, each with every count set to 0 just before it and read
+    just after: read-backs, collectives (the eager ones and those that
+    replays made, counted on the card), kernel launches (replays
+    included), captures, replays and capture seconds, wall seconds, peak
+    memory, and ``keep(result)``."""
+    out = {}
+    for mode, graph in (("graph_first", True), ("graph", True),
+                        ("eager", False)):
+        _reset_counts()
+        _graph.reset_graph_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = solve(graph)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        stats = _graph.graph_stats()
+        out[mode] = {
+            "seconds": wall, "readbacks": _device.readback_count(),
+            "collectives": _graph.launches(_dist.all_reduce, "collectives"),
+            "collectives_made_by_the_host": _dist.collective_count(),
+            "launches": {"cpqr_batched_packed":
+                         _graph.launches(cpqr_batched_packed),
+                         **wy.launch_counts()},
+            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "captures": stats["captures"], "replays": stats["replays"],
+            "capture_seconds": stats["capture_s"],
+            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+            "result": keep(res)}
+    return out
+
+
+def _batch_keep(res):
+    return {"exit_code": res.exit_code.cpu(), "x": res.x.cpu(),
+            "n_iter": res.n_iter.cpu(), "f": res.f.double().cpu(),
+            "trips": run_batch.last_trips}
+
+
+def _rank_graph(rank, world):
+    """One NCCL rank: every sharded entry point through its captured graph
+    and its eager loop on the same inputs (``_graph_vs_eager``):
+    ``sharded_hs65`` (4096 lanes, float32 and float64),
+    ``sharded_hetero_suite`` (the five-family fused float32 batch) and
+    ``rowsharded_giant_m`` (a)-(d) at 5,000,000 x 100 x 50.  The graph
+    replay of HS65 also fills the ``hs65`` rows of this backend."""
+    mesh = batch_mesh()
+    out, hs65 = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).replace("torch.", "")
+        fns, starts = _hs65_batch(dtype, HS65_LANES)
+        tols = et.Tols.for_dtype(dtype, DEV)
+        both = _graph_vs_eager(lambda g: solve_batched_sharded(
+            fns, starts, HS65_DIMS, et.Options(), tols, mesh=mesh,
+            dtype=dtype, graph=g), _batch_keep)
+        out[f"sharded_hs65_{name}"] = both
+        g = both["graph"]
+        hs65[name] = {
+            "seconds": g["seconds"], "trips": g["result"]["trips"],
+            "exit_code": g["result"]["exit_code"],
+            "x": g["result"]["x"].double(), "f": g["result"]["f"],
+            "cpqr_batched_launches": g["launches"]["cpqr_batched_packed"],
+            "plain_calls_on_card": g["plain_calls_on_card"],
+            "collectives": g["collectives"],
+            "host_readbacks": g["readbacks"]}
+        _graph.clear_graph_cache()
+    fams = hs_scenario_batch(HETERO_FAMILIES, per_family=512, seed=0)
+    fused = fuse_families(fams)
+    opts = et.Options(max_iter=60)
+
+    def hetero(g):
+        res = solve_suite_fused(fams, opts, _tols_fn, mesh=mesh,
+                                dtype=torch.float32, fused=fused, graph=g)
+        return res, run_batch.last_trips
+
+    out["sharded_hetero_suite"] = _graph_vs_eager(hetero, lambda r: {
+        "trips": r[1], "lanes": {n: {"exit_code": v.exit_code.cpu(),
+                                     "x": v.x.cpu(), "n_iter": v.n_iter.cpu()}
+                                 for n, v in r[0].items()}})
+    _graph.clear_graph_cache()
+    torch.cuda.empty_cache()
+    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float32,
+                 shard=(rank, world))
+    for config in GIANT_CONFIGS:
+        out[f"rowsharded_giant_m_{config}"] = _graph_vs_eager(
+            lambda g: _rowsharded_solve(gm, config, mesh, graph=g),
+            lambda c: {"x": c.x.cpu(), "exit_code": int(c.exit_code),
+                       "n_iter": int(c.nb_iter),
+                       "active_constraints": int(c.active_mask.sum())})
+        _graph.clear_graph_cache()
+    del gm
+    torch.cuda.empty_cache()
+    return {"paths": out, "hs65": hs65}
+
+
 RANK_JOBS = {"hs65": _rank_hs65, "hetero": _rank_hetero,
-             "giant": _rank_giant}
+             "giant": _rank_giant, "graph": _rank_graph}
 
 
 def _rank_main(rank, world, backend, init_file, out_dir, jobs):
-    """One rank: join the group, run ``jobs`` in order, save the results."""
+    """One rank: join the group, run ``jobs`` in order, save the results
+    (the ``graph`` job's ``hs65`` rows under ``hs65``)."""
     _dist.init_process_group(backend, f"file://{init_file}", world, rank)
     out = {job: RANK_JOBS[job](rank, world) for job in jobs}
+    if "graph" in out:
+        out["hs65"] = out["graph"]["hs65"]
     torch.distributed.destroy_process_group()
     torch.save(out, f"{out_dir}/rank{rank}.pt")
 
@@ -1989,18 +2106,73 @@ def _giant_rows(gloo, giant_kept, one64, fails):
     return rows, tsqr, f64row
 
 
+def _equal_results(a, b) -> bool:
+    """Two results of ``_graph_vs_eager``'s ``keep`` equal to the bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_results(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _graph_rows(nccl, fails):
+    """The ``sharded_graph`` line: for each sharded path of the NCCL rank,
+    its graph against its eager loop on the same inputs: results equal to
+    the bit (x, exit codes, iterations, trips), one read-back a solve on
+    the graph path (the batch's gather adds none), the path's kernel
+    launched at replay, no plain batched factorization on the card."""
+    rows = []
+    for path, both in nccl[0]["graph"]["paths"].items():
+        g, e = both["graph"]["result"], both["eager"]["result"]
+        kernel = "cpqr_batched_packed" if not path.startswith("rowsharded") \
+            else GIANT_CONFIGS[path[-1]][3]
+        row = {"path": path, "backend": "nccl", "ranks": 1,
+               "results_equal_to_the_bit": _equal_results(g, e),
+               "kernel": kernel,
+               **{m: {k: v for k, v in both[m].items() if k != "result"}
+                  for m in both}}
+        if "trips" in g:
+            row["trips"] = [g["trips"], e["trips"]]
+        if "n_iter" in g and not isinstance(g["n_iter"], torch.Tensor):
+            row["iterations"] = [g["n_iter"], e["n_iter"]]
+            row["exit_code"] = [g["exit_code"], e["exit_code"]]
+            row["active_constraints"] = g["active_constraints"]
+        ok = row["results_equal_to_the_bit"]
+        for m in ("graph_first", "graph"):
+            ok = ok and both[m]["readbacks"] == 1 \
+                and both[m]["launches"][kernel] > 0 \
+                and both[m]["plain_calls_on_card"] == 0 \
+                and both[m]["collectives"] > 0
+            ok = ok and all(v == 0 for k, v in both[m]["launches"].items()
+                            if k != kernel)
+        ok = ok and both["graph"]["captures"] == 0 \
+            and both["graph_first"]["captures"] >= 1
+        if path.startswith("rowsharded"):
+            ok = ok and g["exit_code"] == 10000 \
+                and g["active_constraints"] >= 5
+        if not ok:
+            fails.append(("sharded_graph", row))
+        rows.append(row)
+    return rows
+
+
 def multi_rank_phases(hetero_out, giant_kept):
     """sharded_hs65 (two gloo ranks, then one NCCL rank),
-    sharded_hetero_suite and rowsharded_giant_m (two gloo ranks), each
-    held against one-process / one-card solves of the same inputs.  Every
-    line is printed before a failed check fails the script."""
+    sharded_hetero_suite and rowsharded_giant_m (two gloo ranks, eager
+    loops), each held against one-process / one-card solves of the same
+    inputs; then ``sharded_graph``: the NCCL rank's sharded paths through
+    their captured graphs against their eager loops.  Every line is
+    printed before a failed check fails the script."""
     t0 = time.time()
     gm64 = giant_m(GIANT64_M, GIANT_N, GIANT_L, seed=3, dtype=torch.float64)
     one64, _ = _giant_solve(gm64, "a", dtype=torch.float64)
     del gm64
     torch.cuda.empty_cache()
     gloo = run_ranks(RANKS, "gloo", ["hs65", "hetero", "giant"])
-    nccl = run_ranks(1, "nccl", ["hs65"])
+    t_nccl = time.time()
+    nccl = run_ranks(1, "nccl", ["graph"])
+    t_nccl = time.time() - t_nccl
     fails = []
     hs = {**_hs65_rows(gloo, "gloo", fails), **_hs65_rows(nccl, "nccl", fails)}
     emit({"sharded_hs65": hs, "phase_seconds": time.time() - t0})
@@ -2009,8 +2181,10 @@ def multi_rank_phases(hetero_out, giant_kept):
     rows, tsqr, f64row = _giant_rows(gloo, giant_kept, one64, fails)
     emit({"rowsharded_giant_m": rows, "tsqr_c": tsqr, "float64": f64row,
           "phase_seconds": time.time() - t0})
+    graph_rows = _graph_rows(nccl, fails)
+    emit({"sharded_graph": graph_rows, "nccl_rank_seconds": t_nccl})
     assert not fails, fails
-    return hs, het, gloo
+    return hs, het, gloo, graph_rows
 
 
 def profile_solve(solve, kernel=None):
@@ -2137,7 +2311,8 @@ def main() -> None:
     assert plain_calls == 0, \
         f"{plain_calls} batched factorizations took the plain version"
     _graph.clear_graph_cache()
-    sharded_hs, sharded_het, gloo = multi_rank_phases(hetero_out, giant_kept)
+    sharded_hs, sharded_het, gloo, graph_rows = multi_rank_phases(
+        hetero_out, giant_kept)
     if "--profile" in sys.argv:
         emit({"profile_giant_m_a": profile_solve(
             lambda: _giant_solve(gm, "a"))})
@@ -2170,7 +2345,11 @@ def main() -> None:
         **{f"sharded_hs65_{k}_rank{r}": n for k, row in sharded_hs.items()
            for r, n in enumerate(row["cpqr_batched_launches_by_rank"])},
         **{f"sharded_hetero_suite_rank{r}": n for r, n in
-           enumerate(sharded_het["cpqr_batched_launches_by_rank"])}}
+           enumerate(sharded_het["cpqr_batched_launches_by_rank"])},
+        **{f"sharded_graph_{row['path']}_nccl_replay":
+           row["graph"]["launches"]["cpqr_batched_packed"]
+           for row in graph_rows
+           if row["kernel"] == "cpqr_batched_packed"}}
     assert all(v > 0 for v in launches_by_path.values()), \
         ("a batched path never launched cpqr_batched_packed", launches_by_path)
     launches_batched = sum(launches_by_path.values())
@@ -2201,7 +2380,7 @@ def main() -> None:
         "l2_copy_GBps": l2_rate,
         "cases": cases}, _batched_kernel_entry(bcases, launches_batched,
                                               launches_by_path),
-        *_wy_kernel_entries(wcases, giant, gloo)]})
+        *_wy_kernel_entries(wcases, giant, gloo, graph_rows)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

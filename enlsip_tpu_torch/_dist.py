@@ -17,9 +17,21 @@ bit, -0.0 and NaN payloads included.
 
 Every collective is counted (:func:`collective_count`), as
 ``_device.to_host`` counts read-backs.  Every rank must take the same
-host branch, or the next collective waits forever: the solvers compute
-each branch predicate from replicated values, and the process groups
-are created with a timeout (:func:`init_process_group`).
+branch, or the next collective waits forever: the solvers compute each
+branch predicate from replicated values, and the process groups are
+created with a timeout (:func:`init_process_group`).
+
+Inside a device-resident solve (``_graph``) a collective on NCCL is
+captured like any other work of the stream: ``ProcessGroupNCCL`` joins
+its own stream to the capturing one by events, so the collective lands
+in the body being captured (a conditional node's, when the solve
+branches around it) and runs at every replay, where the device launch
+counter of ``_graph.count_launch`` counts it (``collective_count`` counts
+the collectives made now: eager, or in a CPU rehearsal).  A gloo
+collective on a card's tensor goes through host memory, which a graph
+cannot hold: inside a device-resident solve it raises.  The device form
+of the convergence check, :func:`mesh_flags`, leaves its flags on the
+device for a WHILE or an IF node.
 
 The row scope (:func:`row_scope`) is the counterpart of ``jax.set_mesh``
 around the row-sharded giant-m solve: inside it, the solver's
@@ -38,6 +50,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from . import _graph
 from ._device import resolve_device
 
 # How long a collective may wait for the other ranks before it fails.
@@ -89,35 +102,87 @@ def make_mesh(group=None, device=None, axis: str = "batch") -> Mesh:
                 device=resolve_device(device), axis=axis)
 
 
-# ------------------------------------------------------------ counting
-
-class _Collectives:
-    count = 0
-
-
-def collective_count() -> int:
-    return _Collectives.count
-
-
-def reset_collective_count() -> None:
-    _Collectives.count = 0
-
-
 # --------------------------------------------------------- collectives
+
+def via_host(mesh: Mesh, device) -> bool:
+    """Do the mesh's collectives on tensors of ``device`` go through host
+    memory?  (gloo on anything but the CPU: a device-resident solve
+    cannot hold them.)"""
+    if mesh.group is None or torch.device(device).type == "cpu":
+        return False
+    import torch.distributed as dist
+    return dist.get_backend(mesh.group) == "gloo"
+
+
+def check_capturable(mesh: Optional[Mesh], device) -> None:
+    """Raise unless the mesh's collectives on ``device`` can sit inside a
+    captured graph (gloo with a card's tensors cannot: the caller passes
+    ``graph=False``; nothing switches by itself)."""
+    if mesh is not None and via_host(mesh, device):
+        raise ValueError("a gloo group moves the card's tensors through "
+                         "host memory, which a captured graph cannot hold: "
+                         "pass graph=False (or use NCCL)")
+
 
 def all_reduce(t: torch.Tensor, mesh: Mesh, op: str = "sum") -> torch.Tensor:
     """A new tensor: ``t`` reduced over the ranks of ``mesh`` ("sum" or
     "max"), identical on every rank; ``t`` itself is left as it was.
-    With no process group it is ``t``."""
+    With no process group it is ``t``.  Enqueued in the current stream's
+    order with no host read, so it may be captured (NCCL); through host
+    memory (gloo with a card's tensor) it raises inside a
+    device-resident solve."""
     if mesh.group is None:
         return t
     import torch.distributed as dist
-    via_host = t.is_cuda and dist.get_backend(mesh.group) == "gloo"
-    out = t.contiguous().cpu() if via_host else t.contiguous().clone()
+    host = via_host(mesh, t.device)
+    if host and _graph.device_resident():
+        raise RuntimeError(
+            "a gloo collective on a tensor on the card goes through host "
+            "memory and cannot run inside a device-resident solve; use "
+            "NCCL, or pass graph=False")
+    out = t.contiguous().cpu() if host else t.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM if op == "sum"
                     else dist.ReduceOp.MAX, group=mesh.group)
-    _Collectives.count += 1
-    return out.to(t.device) if via_host else out
+    _graph.count_launch(all_reduce, "collectives")
+    return out.to(t.device) if host else out
+
+
+all_reduce.collectives = 0
+_graph.register_counts(all_reduce, "collectives")
+
+
+def mesh_key(mesh: Optional[Mesh]) -> tuple:
+    """What a captured graph's key holds of a mesh: the process group
+    itself (kept alive by the key, so its identity is not reused), D, the
+    rank and the axis.  A graph captured for one mesh is never replayed
+    in another."""
+    if mesh is None:
+        return (None,)
+    return (mesh.group, mesh.size, mesh.rank, mesh.axis)
+
+
+def scope_key() -> tuple:
+    """:func:`mesh_key` of the ambient row scope's mesh."""
+    return mesh_key(_RowScope.mesh)
+
+
+def warm(mesh: Optional[Mesh], device) -> None:
+    """One eager collective on ``device``, before a capture: NCCL creates
+    its communicator at the first collective, which a capture cannot
+    hold."""
+    if mesh is not None and mesh.group is not None:
+        all_reduce(torch.zeros(1, device=device), mesh)
+
+
+def collective_count() -> int:
+    """Collectives made now (eager, or in a CPU rehearsal); a replayed
+    graph's are on the device counter, ``_graph.launches(all_reduce,
+    "collectives")``."""
+    return all_reduce.collectives
+
+
+def reset_collective_count() -> None:
+    all_reduce.collectives = 0
 
 
 _INT_OF_WIDTH = {1: torch.uint8, 2: torch.int16, 4: torch.int32,
@@ -154,18 +219,25 @@ def gather_lanes(local: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return g.reshape(-1, *local.shape[1:])
 
 
-def mesh_any(pred: torch.Tensor,
-             mesh: Optional[Mesh] = None) -> tuple[bool, bool]:
-    """(does any lane of any rank hold ``pred``, does any of this rank's):
-    one collective (max) and one counted read-back.  With no mesh, or a
-    one-rank one, both are "does any lane hold it", with no collective."""
-    from ._device import to_host, to_host_list
+def mesh_flags(pred: torch.Tensor, mesh: Optional[Mesh] = None):
+    """(does any lane of any rank hold ``pred``, does any of this rank's)
+    as 0-d bool tensors on the device, for a WHILE and an IF node: one
+    collective (max), no read-back.  With no mesh, or a one without a
+    process group, both are "does any lane hold it"."""
     mine = torch.any(pred)
     if mesh is None or mesh.group is None:
-        loc = bool(to_host(mine))
-        return loc, loc
-    mine = mine.to(torch.int32).reshape(1)
-    glob, loc = to_host_list(torch.cat([all_reduce(mine, mesh, "max"), mine]))
+        return mine, mine
+    glob = all_reduce(mine.to(torch.int32).reshape(1), mesh, "max")
+    return glob[0] > 0, mine
+
+
+def mesh_any(pred: torch.Tensor,
+             mesh: Optional[Mesh] = None) -> tuple[bool, bool]:
+    """:func:`mesh_flags` read back as host bools in one counted
+    transfer."""
+    from ._device import to_host_list
+    glob, loc = mesh_flags(pred, mesh)
+    glob, loc = to_host_list(torch.stack([glob, loc]))
     return bool(glob), bool(loc)
 
 

@@ -24,8 +24,12 @@ read their flags directly (what a conditional node does on the card),
 and :func:`_device.forbid_readbacks` makes any other read-back raise.
 
 Graphs are cached by key (the static arguments: closures, dims, options,
-dtype, shapes, device) in a bounded cache; :func:`clear_graph_cache`
-empties it and gives the pools back.  Nothing falls back: a failed
+dtype, shapes, device, and for a sharded solve the mesh: its process
+group, size, rank and axis, ``_dist.mesh_key``) in a bounded cache;
+:func:`clear_graph_cache` empties it and gives the pools back.  A
+sharded solve's collectives are captured where they are enqueued: NCCL's
+own stream joins the capturing stream by events, so a collective inside
+a conditional body lands in that body.  Nothing falls back: a failed
 capture, a refused launch or a missing conditional-node API raises.
 """
 
@@ -50,7 +54,7 @@ MAX_DEPTH = 24
 class _State(threading.local):
     mode = None          # None (eager), "capture" or "emulate"
     depth = 0
-    guards = None        # (name, flag) of the capture in progress
+    guards = None        # names of the capture's finite-value checks
 
 
 _state = _State()
@@ -188,27 +192,56 @@ def while_body(pred, fn):
         _set_again(handle, fn())
 
 
+class _GuardFlags:
+    """One bool slot per finite-value check of a captured graph, on each
+    device, made once OUTSIDE every graph: a flag allocated during a
+    capture would share its memory with the graph's earlier temporaries,
+    which a replay writes after the flag was zeroed.  The k-th check of a
+    capture takes slot k; a replay zeroes the slots of its graph first
+    and reads them back after."""
+
+    CAPACITY = 4096
+    slots: dict = {}
+
+
+def _guard_slots(device) -> torch.Tensor:
+    dev = torch.device(device).index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    if dev not in _GuardFlags.slots:
+        _GuardFlags.slots[dev] = torch.zeros(
+            _GuardFlags.CAPACITY, dtype=torch.bool, device=f"cuda:{dev}")
+    return _GuardFlags.slots[dev]
+
+
 def guard(name: str, bad) -> None:
     """A finite-value check inside a device-resident solve
     (``utils.debug.guarded_functions``).  On a CPU rehearsal it raises
-    at once; captured, the device flag ``bad`` is or-ed into a flag of the
-    graph's, zeroed before every replay and read back after it (one
-    read-back, only in graphs that hold a check), and the first function
-    whose flag is set is named."""
+    at once; captured, the device flag ``bad`` is or-ed into the check's
+    slot (:class:`_GuardFlags`), zeroed before every replay and read back
+    after it (one read-back, only in graphs that hold a check), and the
+    first function whose flag is set is named."""
     if _state.mode == "emulate":
         if flag_value(bad):
             raise FloatingPointError(f"non-finite values from {name}(x)")
         return
-    acc = torch.empty((), dtype=torch.bool, device=bad.device)
-    acc.logical_or_(bad)
-    _state.guards.append((name, acc))
+    k = len(_state.guards)
+    if k == _GuardFlags.CAPACITY:
+        raise RuntimeError(f"more than {k} finite-value checks in one "
+                           f"captured solve")
+    # the check may sit beneath torch.func transforms (a closure's
+    # Jacobian, a Newton Hessian), which refuse writes into a tensor made
+    # outside them: ``bad`` is a plain tensor, and so is the write
+    with torch._C._DisableFuncTorch():
+        _guard_slots(bad.device)[k:k + 1].logical_or_(bad.reshape(1))
+    _state.guards.append(name)
 
 
-def _check_guards(entry) -> None:
+def _check_guards(entry, slots) -> None:
     if not entry.guards:
         return
-    hit = to_host_list(torch.stack([acc for _, acc in entry.guards]))
-    for (name, _), bad in zip(entry.guards, hit):
+    hit = to_host_list(slots[:len(entry.guards)])
+    for name, bad in zip(entry.guards, hit):
         if bad:
             raise FloatingPointError(f"non-finite values from {name}(x)")
 
@@ -316,6 +349,7 @@ def warm_up(device) -> None:
                 torch.bmm(a.expand(3, 4, 4), b.expand(3, 4, 4))
         torch.cuda.current_stream(dev).wait_stream(st)
     _device_slots(dev)
+    _guard_slots(dev)
     torch.cuda.synchronize(dev)
     _SCRATCH[dev] = True
 
@@ -333,7 +367,8 @@ def _capture_stream(device) -> torch.cuda.Stream:
 class Graph:
     """A captured function: its graph, the static inputs the caller copies
     into before a replay, the outputs a replay overwrites, the body
-    pool, and how long capture and instantiation took."""
+    pool, how long capture and instantiation took, and the names of its
+    finite-value checks in slot order."""
 
     def __init__(self, graph, inputs, outputs, pool, capture_s: float,
                  guards=()):
@@ -352,6 +387,7 @@ def capture(fn, inputs, device) -> Graph:
     _library()
     # every kernel module registers its device launch counts on import:
     # import them before a capture might
+    from . import _dist  # noqa: F401
     from .ops import cpqr_batched_hopper, cpqr_hopper, wy_hopper  # noqa: F401
     with torch.cuda.device(dev):
         warm_up(dev)
@@ -473,11 +509,11 @@ def run(key, fn, inputs: tuple, device, warm=None):
         with torch.cuda.device(dev):
             _copy_into(entry.inputs, inputs)
     with torch.cuda.device(dev):
-        for _, acc in entry.guards:
-            acc.zero_()
+        slots = _guard_slots(dev)
+        slots[:len(entry.guards)].zero_()
         entry.graph.replay()
     _cache.replays += 1
-    _check_guards(entry)
+    _check_guards(entry, slots)
     return entry.outputs
 
 

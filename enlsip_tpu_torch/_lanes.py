@@ -124,7 +124,9 @@ def const(v, device, dtype=None):
 def tree_where(pred, t, f):
     """Per-lane select over two identically-structured nests of tensors
     (tuples, NamedTuples, ``None``); ``pred`` is a per-lane bool
-    broadcast over each leaf's trailing axes."""
+    broadcast over each leaf's trailing axes.  A static leaf both sides
+    share (an axis name, the very same mesh object of a row-sharded
+    factorization) is passed through."""
     if t is None:
         return None
     if isinstance(t, torch.Tensor) or isinstance(f, torch.Tensor):
@@ -133,10 +135,17 @@ def tree_where(pred, t, f):
         nd = max(t.ndim, f.ndim) - pred.ndim
         return torch.where(ex(pred, nd), t, f)
     if isinstance(t, tuple):
+        if t is f and not any(isinstance(a, torch.Tensor) for a in t):
+            return t
         vals = [tree_where(pred, a, b) for a, b in zip(t, f)]
         return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
-    # Python numbers
-    return torch.where(pred, const(t, pred.device), const(f, pred.device))
+    if isinstance(t, (bool, int, float)):
+        return torch.where(pred, const(t, pred.device),
+                           const(f, pred.device))
+    if t == f:
+        return t
+    raise TypeError(f"the two sides of a branch disagree in a static "
+                    f"leaf ({t!r} vs {f!r})")
 
 
 def is_batched(pred) -> bool:

@@ -49,7 +49,8 @@ import torch
 
 from .. import _graph
 from .._device import resolve_device, to_host_list
-from .._dist import rows_dot, rows_sum
+from .._dist import row_mesh_in_scope, rows_dot, rows_sum, scope_key
+from .._dist import warm as warm_collectives
 from .._lanes import (cond, const, dot, ex, mtv, norm, take, take1,
                       tree_where, while_loop)
 from ..ops.qr import pseudo_rank
@@ -586,7 +587,9 @@ def _unpack_result(flat: torch.Tensor, n: int,
 
 
 def _warm(fns: Functions, x) -> None:
-    """Every closure once at ``x``, eagerly (before a capture)."""
+    """Every closure once at ``x``, eagerly (before a capture), and one
+    collective of the row scope's mesh (NCCL's communicator)."""
+    warm_collectives(row_mesh_in_scope(), x.device)
     new_point(fns, x, Counters.zeros())
     if fns.res_trial is not None:
         fns.res_trial(x, torch.zeros_like(x))(
@@ -594,7 +597,9 @@ def _warm(fns: Functions, x) -> None:
 
 
 def _static_key(fns: Functions, dims: Dims, opts: Options, dtype):
-    return (fns, dims, opts, dtype)
+    """The static part of a solve graph's key, with the row scope's mesh
+    (a graph captured inside one row scope holds its collectives)."""
+    return (fns, dims, opts, dtype) + scope_key()
 
 
 def _solve_full_graph(x0, tols: Tols, fns: Functions, dims: Dims,
@@ -607,6 +612,23 @@ def _solve_full_graph(x0, tols: Tols, fns: Functions, dims: Dims,
         return _pack_result(carry, rows_dot(carry.rx, carry.rx))
 
     key = ("solve",) + _static_key(fns, dims, opts, dtype) + \
+        _graph.shapes_key(x0)
+    return _graph.run(key, full, (x0, tols), x0.device,
+                      warm=lambda: _warm(fns, x0))
+
+
+def _solve_carry_graph(x0, tols: Tols, fns: Functions, dims: Dims,
+                       opts: Options, dtype):
+    """Init and the whole loop as ONE device program returning the final
+    carry and [exit code, iterations] (the row-sharded solve's: inside a
+    row scope the capture holds every collective of the contractions
+    over the rows).  The returned buffers are the graph's."""
+    def full(x0, tols):
+        carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
+        carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
+        return carry, torch.stack([carry.exit_code, carry.nb_iter])
+
+    key = ("solve_carry",) + _static_key(fns, dims, opts, dtype) + \
         _graph.shapes_key(x0)
     return _graph.run(key, full, (x0, tols), x0.device,
                       warm=lambda: _warm(fns, x0))

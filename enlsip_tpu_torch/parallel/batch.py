@@ -18,15 +18,16 @@ The loop is device-resident, as the JAX package's is: on a CUDA device
 result as ONE captured CUDA graph (``_graph``; the trips a WHILE node,
 the body's branches IF nodes), replayed once, with the trip count and
 the exit codes read back in one transfer.  A finite time limit follows
-the JAX package's chunk schedule on a captured chunk graph.  The eager
-loop (:func:`run_batch` with ``graph=False``, and with a ``mesh``: the
-batch-sharded solves of ``parallel/sharding.py``, whose gloo collective
-cannot be captured) reads "is any lane still running" back once per
-``check_every`` trips and the clock every trip; with a ``mesh`` that
-check is one ``all_reduce`` over the ranks, so every rank runs the same
-trips.  As in the JAX package, the factored-Jacobian hook
-(``Functions.jac_rowscale`` / ``jac_base``) is a single-solve feature and
-``init_batch`` rejects it.
+the JAX package's chunk schedule on a captured chunk graph.  With a
+``mesh`` (the batch-sharded solves of ``parallel/sharding.py``) the
+WHILE node's flag is "is any lane of ANY rank running", one
+``all_reduce`` (max) inside the loop, as the reference's while predicate
+becomes under GSPMD, so every rank runs the same trips; a rank whose own
+lanes are done skips the body through an IF node on its local flag.  The
+eager loop (:func:`run_batch` with ``graph=False``) reads the same check
+back once per ``check_every`` trips and the clock every trip.  As in the
+JAX package, the factored-Jacobian hook (``Functions.jac_rowscale`` /
+``jac_base``) is a single-solve feature and ``init_batch`` rejects it.
 """
 
 from __future__ import annotations
@@ -39,8 +40,10 @@ from torch.utils import _pytree as pytree
 
 from .. import _graph
 from .._device import resolve_device, to_host_list
-from .._dist import Mesh, mesh_any
-from .._lanes import dot, while_loop
+from .._dist import (Mesh, check_capturable, mesh_any, mesh_flags,
+                     mesh_key)
+from .._dist import warm as warm_collectives
+from .._lanes import cond, dot, while_loop
 from ..core.batched import (batched_guarded_body, has_data, lane_functions,
                             lane_hessians)
 from ..core.driver import Functions, init_carry
@@ -101,50 +104,67 @@ def init_batch(fns: Functions, x0_batch, dims: Dims, opts: Options, dtype,
 
 def _batch_trips(carry: Carry, fns: Functions, dims: Dims, opts: Options,
                  tols: Tols, chunk, data=None, rdims=None,
-                 check_every: int = 1):
+                 check_every: int = 1, mesh: Optional[Mesh] = None):
     """Lockstep trips while any lane runs and fewer than ``chunk`` (an int
     or a 0-d device tensor) have run, ``check_every`` bodies between two
     checks (JAX: a ``fori_loop`` inside the ``while_loop``): one WHILE
     node when captured.  ``data`` / ``rdims`` are on the device already.
-    Returns (carry, trips)."""
+    With a ``mesh`` the check is global (one ``all_reduce`` a check, in
+    the WHILE node's flag) and a trip's bodies run only where this rank
+    has a lane running (an IF node on the local flag, no collective in
+    its body).  Returns (carry, trips)."""
     lfns = lane_functions(fns, data)
     hess = lane_hessians(fns, data) if opts.second_derivatives else None
 
     def go(st):
         c, trips = st
-        return torch.any(c.exit_code == 0) & (trips < chunk)
+        some, _ = mesh_flags(c.exit_code == 0, mesh)
+        return some & (trips < chunk)
+
+    def bodies(c):
+        for _ in range(check_every):
+            c = batched_guarded_body(c, lfns, dims, opts, tols, rdims, hess)
+        return c
 
     def step(st):
         c, trips = st
-        for _ in range(check_every):
-            c = batched_guarded_body(c, lfns, dims, opts, tols, rdims, hess)
+        if mesh is not None:
+            c = cond(torch.any(c.exit_code == 0), lambda: bodies(c),
+                     lambda: c)
+        else:
+            c = bodies(c)
         return c, trips + check_every
 
     return while_loop(go, step, (carry, torch.zeros(
         (), dtype=torch.int64, device=carry.x.device)))
 
 
-def _batch_key(kind, fns, dims, opts, dtype, tree):
-    return (kind, fns, dims, opts, dtype) + _graph.shapes_key(tree)
+def _batch_key(kind, fns, dims, opts, dtype, tree, mesh=None):
+    return (kind, fns, dims, opts, dtype) + mesh_key(mesh) + \
+        _graph.shapes_key(tree)
 
 
 def _run_batch_chunk_graph(carry: Carry, tols: Tols, chunk: torch.Tensor,
                            data, rdims, fns: Functions, dims: Dims,
-                           opts: Options, check_every: int = 1):
+                           opts: Options, check_every: int = 1,
+                           mesh: Optional[Mesh] = None):
     """Up to ``chunk`` lockstep trips as a captured graph (JAX
     ``_run_batch_chunk_jit``; ``chunk`` is a device scalar, so one graph
     serves every chunk size).  Returns the graph's (carry, trips)."""
     def trips_fn(carry, tols, chunk, data, rdims):
         return _batch_trips(carry, fns, dims, opts, tols, chunk, data, rdims,
-                            check_every)
+                            check_every, mesh)
+
+    def warm():
+        warm_collectives(mesh, carry.x.device)
+        init_carry(lane_functions(fns, data), carry.x, dims, opts, dtype,
+                   rdims, device=carry.x.device)
 
     dtype = carry.x.dtype
     key = _batch_key(("batch_chunk", check_every), fns, dims, opts, dtype,
-                     (carry, data, rdims))
-    return _graph.run(
-        key, trips_fn, (carry, tols, chunk, data, rdims), carry.x.device,
-        warm=lambda: init_carry(lane_functions(fns, data), carry.x, dims,
-                                opts, dtype, rdims, device=carry.x.device))
+                     (carry, data, rdims), mesh)
+    return _graph.run(key, trips_fn, (carry, tols, chunk, data, rdims),
+                      carry.x.device, warm=warm)
 
 
 def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
@@ -153,15 +173,16 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
               time_limit: Optional[float] = None,
               start_time: Optional[float] = None,
               mesh: Optional[Mesh] = None,
-              graph: Optional[bool] = None) -> Carry:
+              graph: bool = True) -> Carry:
     """Advance every unconverged lane until all lanes terminate (or
     ``max_steps`` loop trips).
 
-    ``graph`` (default: without a ``mesh``): the trips run
-    device-resident, as a captured chunk graph on a CUDA device (one
-    replay and one read-back of the trip count when the time is
-    unlimited; a finite ``time_limit`` takes the chunk schedule of
-    :func:`solve_batched`).  ``graph=False`` runs the eager loop.
+    ``graph`` (default): the trips run device-resident, as a captured
+    chunk graph on a CUDA device (one replay and one read-back of the
+    trip count when the time is unlimited; a finite ``time_limit`` takes
+    the chunk schedule of :func:`solve_batched`).  ``graph=False`` runs
+    the eager loop; a ``mesh`` over a gloo group with a card's tensors
+    needs it (``graph=True`` raises there).
 
     ``check_every``: body steps per convergence check (eagerly one
     read-back a check).  Checking every k trips costs up to k-1 extra
@@ -177,7 +198,9 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     ``all_reduce``), so every rank runs the same trips as the reference's
     global loop does and ``run_batch.last_trips`` is global.  A rank
     whose own lanes have all terminated skips the body (it would change
-    nothing: terminated lanes are frozen).
+    nothing: terminated lanes are frozen).  Every rank's clock differs,
+    so a sharded batch has no ``time_limit`` on the device-resident path
+    (the reference's sharded loop has none).
 
     Cap invariant: all lanes step in lockstep (a lane's nb_iter only
     advances while its exit_code == 0 and it records), so loop trips
@@ -191,16 +214,17 @@ def run_batch(carry: Carry, fns: Functions, dims: Dims, opts: Options,
                   for v in tols))
     cap = max_steps if max_steps is not None else opts.max_iter + 2
     start = time.time() if start_time is None else start_time
-    if graph is None:
-        graph = mesh is None
     if graph:
         if mesh is not None:
-            raise ValueError("a sharded batch runs the eager loop (its "
-                             "collectives are not captured)")
+            check_capturable(mesh, dev)
+            if time_limit is not None:
+                raise ValueError("a sharded batch has no time limit on the "
+                                 "device-resident path: every rank's clock "
+                                 "differs (pass graph=False)")
         with _graph.linalg_scope(dev):
             carry, trips = _chunk_schedule(carry, tols, data, rdims, fns,
                                            dims, opts, cap, time_limit, start,
-                                           check_every)
+                                           check_every, mesh)
         run_batch.last_trips = trips
         return carry
     lfns = lane_functions(fns, data)
@@ -234,7 +258,8 @@ def _timed_out(carry: Carry) -> Carry:
 
 
 def _chunk_schedule(carry, tols, data, rdims, fns, dims, opts, cap: int,
-                    time_limit, start: float, check_every: int = 1):
+                    time_limit, start: float, check_every: int = 1,
+                    mesh: Optional[Mesh] = None):
     """The JAX package's chunk schedule over the chunk graph: all ``cap``
     trips at once when the time is unlimited, else one measured trip and
     then chunks of half the remaining budget.  Each chunk is one replay
@@ -255,7 +280,7 @@ def _chunk_schedule(carry, tols, data, rdims, fns, dims, opts, cap: int,
         t0 = time.time()
         carry, done = _run_batch_chunk_graph(
             carry, tols, torch.full((), chunk, dtype=torch.int64, device=dev),
-            data, rdims, fns, dims, opts, check_every)
+            data, rdims, fns, dims, opts, check_every, mesh)
         done, alive = to_host_list(torch.stack(
             [done, torch.any(carry.exit_code == 0).to(torch.int64)]))
         trips += done
@@ -334,22 +359,33 @@ def escalate_lanes_f64(fns: Functions, x0_batch, dims: Dims, opts: Options,
 
 
 def _solve_batched_graph(x0, tols: Tols, data, rdims, fns: Functions,
-                         dims: Dims, opts: Options, dtype, cap: int):
+                         dims: Dims, opts: Options, dtype, cap: int,
+                         check_every: int = 1, mesh: Optional[Mesh] = None,
+                         gather=None):
     """Init, every lockstep trip and the result as ONE device program
-    (JAX ``_solve_batched_jit``).  Returns the graph's (BatchResult, head):
-    ``head`` = [trips, exit codes...] int64, the one buffer read back."""
+    (JAX ``_solve_batched_jit``; with a ``mesh`` the sharded
+    ``_run_sharded_jit``, the check an ``all_reduce`` inside the loop and
+    ``gather(result, mesh)``, the exact merge of the ranks' lanes, at the
+    graph's end).  Returns the graph's (BatchResult, head): ``head`` =
+    [trips, exit codes...] int64, the one buffer read back."""
     def full(x0, tols, data, rdims):
         carry = init_batch(fns, x0, dims, opts, dtype, data, rdims,
                            device=x0.device)
         carry, trips = _batch_trips(carry, fns, dims, opts, tols, cap, data,
-                                    rdims)
+                                    rdims, check_every, mesh)
         res = finalize(carry)
+        if gather is not None:
+            res = gather(res, mesh)
         return res, torch.cat([trips[None], res.exit_code])
 
-    key = _batch_key("batch_solve", fns, dims, opts, dtype, (x0, data, rdims))
+    def warm():
+        warm_collectives(mesh, x0.device)
+        init_batch(fns, x0, dims, opts, dtype, data, rdims, device=x0.device)
+
+    key = _batch_key(("batch_solve", check_every, gather is not None), fns,
+                     dims, opts, dtype, (x0, data, rdims), mesh)
     return _graph.run(key, full, (x0, tols, data, rdims), x0.device,
-                      warm=lambda: init_batch(fns, x0, dims, opts, dtype,
-                                              data, rdims, device=x0.device))
+                      warm=warm)
 
 
 def solve_batched(fns: Functions, x0_batch, dims: Dims, opts: Options,

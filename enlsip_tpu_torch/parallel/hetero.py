@@ -157,7 +157,7 @@ def fuse_families(families: dict, device=None) -> FusedSuite:
 def solve_suite_fused(families: dict, opts: Options, tols_fn,
                       mesh=None, dtype=torch.float32, fused=None,
                       escalate_f64: bool = False,
-                      device=None) -> dict:
+                      device=None, graph: bool = True) -> dict:
     """Solve a mixed-family scenario batch as ONE fused batch; returns
     {name: BatchResult} (split back per family).  Runs on ``device``
     (default: the card; raises if there is none).
@@ -171,7 +171,9 @@ def solve_suite_fused(families: dict, opts: Options, tols_fn,
     ``escalate_f64``: re-solve the lanes with exit code <= 0 at float64
     (``parallel.batch.escalate_lanes_f64``, which carries their RDims).
     ``mesh`` (``parallel.sharding.batch_mesh``): the fused batch axis is
-    sharded over its ranks, on the mesh's device."""
+    sharded over its ranks, on the mesh's device.  ``graph``: the
+    device-resident solve (default), or ``graph=False`` for the eager
+    loop (a gloo ``mesh`` with a card's tensors needs it)."""
     if escalate_f64 and mesh is not None:
         raise ValueError(
             "escalate_f64 is not wired through the sharded path; run the "
@@ -182,12 +184,13 @@ def solve_suite_fused(families: dict, opts: Options, tols_fn,
         res = solve_batched(fused.fns, fused.x0, fused.dims, opts,
                             tols_fn(dtype), dtype=dtype, data=fused.data,
                             rdims=fused.rdims, escalate_f64=escalate_f64,
-                            device=device)
+                            device=device, graph=graph)
     else:
         fused = fused or fuse_families(families, mesh.device)
         res = solve_batched_sharded(fused.fns, fused.x0, fused.dims, opts,
                                     tols_fn(dtype), mesh=mesh, dtype=dtype,
-                                    data=fused.data, rdims=fused.rdims)
+                                    data=fused.data, rdims=fused.rdims,
+                                    graph=graph)
     out = {}
     for name, sl in fused.slices.items():
         nf = families[name].dims.n

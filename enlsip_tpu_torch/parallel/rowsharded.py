@@ -19,6 +19,13 @@ collective a factorization).  On the card each rank's block goes through
 the same fused WY kernels as a one-card solve, gated on the block's
 shape; their Gram and projection are then summed by that one collective.
 
+The solve is device-resident, as the JAX package's jitted ``run_chunk``
+is: on a CUDA device with NCCL, init, the whole loop and its collectives
+are ONE captured graph on every rank (the collectives inside the
+conditional nodes' bodies), replayed once and read back once.  A gloo
+group moves a card's tensors through host memory, which a graph cannot
+hold: ``graph=False`` runs the eager loop (one read-back a branch).
+
 The user passes RANK-LOCAL closures: ``res`` returns this rank's m / D
 residuals, ``jac_res`` its (m / D, n) block, ``jac_rowscale`` /
 ``jac_base`` / ``res_trial`` its rows; ``cons`` / ``jac_cons`` are
@@ -33,10 +40,14 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+from torch.utils import _pytree as pytree
 
-from .._device import to_host
-from .._dist import Mesh, make_mesh, row_scope
-from ..core.driver import Functions, init_carry, iterate_body
+from .. import _graph
+from .._device import to_host, to_host_list
+from .._dist import Mesh, check_capturable, make_mesh, row_scope
+from .._lanes import _dense_state
+from ..core.driver import (Functions, _solve_carry_graph, init_carry,
+                           iterate_body)
 from ..core.types import (Carry, Dims, Options, Tols,
                           matmul_precision_scope)
 
@@ -68,8 +79,8 @@ def local_functions(fns: Functions, dims: Dims, mesh: Mesh) -> Functions:
 def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
                      tols: Tols, mesh: Optional[Mesh] = None,
                      axis: str = "rows", dtype=None, tsqr: bool = False,
-                     on_iteration: Optional[Callable[[Carry], None]] = None
-                     ) -> Carry:
+                     on_iteration: Optional[Callable[[Carry], None]] = None,
+                     graph: bool = True) -> Carry:
     """Solve ONE giant-m instance with its residual rows sharded over
     ``mesh`` (``fns``: this rank's closures, see the module docstring).
     ``dims.m`` must divide over the ranks.  Returns the final carry, the
@@ -79,8 +90,21 @@ def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
     factorization (CholeskyQR with ``tall_qr="cholqr"``, the TSQR of the
     ranks' blocks with ``"qr"``; one collective a factorization) instead
     of the pivot loop's two collectives a step; it needs m / D >= n.
-    ``on_iteration(carry)`` is called after every iteration."""
+
+    ``graph`` (default): the solve is device-resident, ONE replay of a
+    captured graph on a CUDA device (a CPU rehearsal of the same code on
+    the CPU) and ONE read-back on each rank, of the exit code and the
+    iteration count (``solve_rowsharded.last``).  ``graph=False`` runs
+    the eager loop, which ``on_iteration(carry)`` needs (it is called
+    after every iteration, on the host); a gloo group with a card's
+    tensors needs it too.  Neither switches by itself: both raise with
+    ``graph=True``."""
     mesh = mesh or row_mesh(axis=axis)
+    if graph and on_iteration is not None:
+        raise ValueError("on_iteration needs the host after every "
+                         "iteration: pass graph=False")
+    if graph:
+        check_capturable(mesh, mesh.device)
     if dims.m % mesh.size:
         raise ValueError(f"m = {dims.m} rows do not divide over "
                          f"{mesh.size} ranks")
@@ -94,15 +118,34 @@ def solve_rowsharded(fns: Functions, x0, dims: Dims, opts: Options,
     dev = mesh.device
     tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
                   for v in tols))
-    with row_scope(mesh), matmul_precision_scope(opts):
+    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+    with row_scope(mesh), matmul_precision_scope(opts), \
+            _graph.linalg_scope(dev):
+        if graph:
+            out, head = _solve_carry_graph(x0, tols, fns, dims, opts, dtype)
+            _check_rows(out, rows, mesh)
+            carry = pytree.tree_map(
+                lambda a: a.clone() if isinstance(a, torch.Tensor) else a,
+                out)
+            solve_rowsharded.last = tuple(to_host_list(head))
+            return carry
         carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
-        if carry.rx.shape[-1] != rows:
-            raise ValueError(
-                f"res returned {carry.rx.shape[-1]} rows; a rank of "
-                f"{mesh.size} holds {rows} (pass rank-local closures, "
-                "e.g. local_functions)")
+        _check_rows(carry, rows, mesh)
+        # the layout a WHILE node's buffers give the graph's trips
+        carry = _dense_state(carry)
         while to_host(carry.exit_code) == 0:
             carry = iterate_body(carry, fns, dims, opts, tols)
             if on_iteration is not None:
                 on_iteration(carry)
     return carry
+
+
+solve_rowsharded.last = None
+
+
+def _check_rows(carry: Carry, rows: int, mesh: Mesh) -> None:
+    if carry.rx.shape[-1] != rows:
+        raise ValueError(
+            f"res returned {carry.rx.shape[-1]} rows; a rank of "
+            f"{mesh.size} holds {rows} (pass rank-local closures, "
+            "e.g. local_functions)")

@@ -3,13 +3,21 @@
 Counterpart of ``enlsip_tpu/parallel/sharding.py`` on
 ``torch.distributed``, in its SPMD idiom: one process a rank, every rank
 calls the same function.  Each rank solves its contiguous slice of the
-lanes with the one-device batch machinery (``init_batch``, ``run_batch``,
-``finalize``; on the card every batched factorization is one launch of
-the batched CPQR kernel on the rank's lanes).  The lockstep "is any lane
-still running" check becomes one ``all_reduce`` over the ranks
-(``run_batch(mesh=)``), so every rank runs the same trips, as the
-reference's global ``while_loop`` does; the global result is assembled
-once at the end by an exact gather (``_dist.gather_lanes``).
+lanes with the one-device batch machinery (``init_batch``, the lockstep
+trips, ``finalize``; on the card every batched factorization is one
+launch of the batched CPQR kernel on the rank's lanes).  The lockstep
+"is any lane still running" check becomes one ``all_reduce`` over the
+ranks, so every rank runs the same trips, as the reference's global
+``while_loop`` does; the global result is assembled once at the end by
+an exact gather (``_dist.gather_lanes``).
+
+Device-resident, as the reference's ``_run_sharded_jit`` (init, the loop
+and ``finalize`` in one jit): with ``graph=True`` (the default) a solve is
+ONE captured graph on every rank, the check's ``all_reduce`` in its WHILE
+node's flag and the gather at its end, replayed once with one read-back
+(the trip count).  NCCL collectives are captured; a
+gloo group with a card's tensors is not (``graph=True`` raises there:
+pass ``graph=False`` for the eager loop).
 
 Lanes are ordered rank-major, as in a mesh built from ``jax.devices()``
 with one device a process: rank r holds lanes [r B_l, (r + 1) B_l).
@@ -29,12 +37,16 @@ from typing import Optional
 import torch
 from torch.utils import _pytree as pytree
 
-from .._dist import Mesh, all_reduce, gather_lanes, make_mesh
+from .. import _graph
+from .._device import to_host_list
+from .._dist import (Mesh, all_reduce, check_capturable, gather_lanes,
+                     make_mesh)
 from ..core.batched import has_data
 from ..core.driver import Functions
 from ..core.types import (Counters, Dims, Options, Tols,
                           matmul_precision_scope)
-from .batch import BatchResult, finalize, init_batch, run_batch
+from .batch import (BatchResult, _lane_rdims, _solve_batched_graph,
+                    _to_device, finalize, init_batch, run_batch)
 
 
 def batch_mesh(group=None, device=None, axis: str = "batch") -> Mesh:
@@ -51,13 +63,31 @@ def _default_dtype(x0) -> torch.dtype:
 
 
 def _solve_local(fns, x0, dims, opts, tols, dtype, data, rdims, mesh,
-                 check_every=1) -> BatchResult:
-    with matmul_precision_scope(opts):
-        carry = init_batch(fns, x0, dims, opts, dtype, data, rdims,
-                           device=mesh.device)
-        carry = run_batch(carry, fns, dims, opts, tols, data=data,
-                          rdims=rdims, check_every=check_every, mesh=mesh)
-        return finalize(carry)
+                 check_every=1, graph=True) -> BatchResult:
+    """This rank's lanes solved in lockstep with the other ranks' and the
+    global result gathered: one graph replay and one read-back
+    (``graph``), or the eager loop and an eager gather."""
+    dev = mesh.device
+    with matmul_precision_scope(opts), _graph.linalg_scope(dev):
+        if not graph:
+            carry = init_batch(fns, x0, dims, opts, dtype, data, rdims,
+                               device=dev)
+            carry = run_batch(carry, fns, dims, opts, tols, data=data,
+                              rdims=rdims, check_every=check_every,
+                              mesh=mesh, graph=False)
+            return _gather_result(finalize(carry), mesh)
+        check_capturable(mesh, dev)
+        x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+        data = _to_device(data, dev, dtype) if has_data(data) else None
+        tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
+                      for v in tols))
+        out, head = _solve_batched_graph(
+            x0, tols, data, _lane_rdims(rdims, dev), fns, dims, opts, dtype,
+            opts.max_iter + 2, check_every, mesh, _gather_result)
+        res = pytree.tree_map(
+            lambda a: a.clone() if isinstance(a, torch.Tensor) else a, out)
+        run_batch.last_trips = to_host_list(head[:1])[0]
+        return res
 
 
 def _gather_result(res: BatchResult, mesh: Mesh) -> BatchResult:
@@ -70,7 +100,8 @@ def _gather_result(res: BatchResult, mesh: Mesh) -> BatchResult:
 def solve_batched_sharded(fns: Functions, x0_batch, dims: Dims,
                           opts: Options, tols: Tols,
                           mesh: Optional[Mesh] = None, axis: str = "batch",
-                          dtype=None, data=None, rdims=None) -> BatchResult:
+                          dtype=None, data=None, rdims=None,
+                          graph: bool = True) -> BatchResult:
     """Batched solve with the batch axis sharded over ``mesh``.  Every
     rank passes the GLOBAL batch (``x0_batch`` (B, n), per-lane ``data``
     and ``rdims`` as in ``solve_batched``) and gets the global result.
@@ -78,7 +109,9 @@ def solve_batched_sharded(fns: Functions, x0_batch, dims: Dims,
     B is padded up to a multiple of D with copies of the last lane (a
     converged duplicate costs one frozen lane) and the padding dropped
     from the result.  There is no ``time_limit``: the reference's
-    sharded loop has none."""
+    sharded loop has none.  ``graph``: device-resident (one replay and
+    one read-back a solve), or ``graph=False`` for the eager loop (which
+    a gloo group with a card's tensors needs)."""
     mesh = mesh or batch_mesh(axis=axis)
     x0 = torch.as_tensor(x0_batch)
     dtype = dtype or _default_dtype(x0)
@@ -96,8 +129,8 @@ def solve_batched_sharded(fns: Functions, x0_batch, dims: Dims,
 
     data = pytree.tree_map(mine, data) if has_data(data) else None
     rdims = None if rdims is None else type(rdims)(*map(mine, rdims))
-    res = _gather_result(_solve_local(fns, mine(x0), dims, opts, tols, dtype,
-                                      data, rdims, mesh), mesh)
+    res = _solve_local(fns, mine(x0), dims, opts, tols, dtype, data, rdims,
+                       mesh, graph=graph)
     if pad:
         res = BatchResult(exit_code=res.exit_code[:B], x=res.x[:B],
                           f=res.f[:B], n_iter=res.n_iter[:B],
@@ -136,7 +169,8 @@ def solve_batched_sharded_mp(fns: Functions, x0_local, dims: Dims,
                              opts: Options, tols: Tols,
                              mesh: Optional[Mesh] = None, axis: str = "batch",
                              dtype=None, data_local=None, rdims_local=None,
-                             check_every: int = 1) -> BatchResult:
+                             check_every: int = 1,
+                             graph: bool = True) -> BatchResult:
     """Batched solve in which each rank passes ITS OWN lanes
     (``x0_local`` (B_local, n), the same B_local on every rank, and the
     optional ``data_local`` / ``rdims_local``).  Returns the global
@@ -144,12 +178,12 @@ def solve_batched_sharded_mp(fns: Functions, x0_local, dims: Dims,
     rank's lanes back with :func:`local_lanes`.
 
     ``check_every``: trips between two global convergence checks (one
-    ``all_reduce`` each); per-lane results do not depend on it."""
+    ``all_reduce`` each); per-lane results do not depend on it.
+    ``graph``: as in :func:`solve_batched_sharded`."""
     mesh = mesh or batch_mesh(axis=axis)
     x0 = torch.as_tensor(x0_local)
     _check_equal_lanes(x0.shape[0], mesh)
     dtype = dtype or _default_dtype(x0)
     data = data_local if has_data(data_local) else None
-    return _gather_result(_solve_local(fns, x0, dims, opts, tols, dtype,
-                                       data, rdims_local, mesh, check_every),
-                          mesh)
+    return _solve_local(fns, x0, dims, opts, tols, dtype, data, rdims_local,
+                        mesh, check_every, graph)

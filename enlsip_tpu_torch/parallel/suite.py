@@ -38,20 +38,24 @@ class FamilySpec(NamedTuple):
 
 def solve_suite_batched(families: dict, opts: Options, tols_fn,
                         mesh=None, dtype=torch.float32,
-                        device=None) -> dict:
+                        device=None, graph: bool = True) -> dict:
     """Solve every family's batch; returns {name: BatchResult}.
 
     ``tols_fn(dtype) -> Tols``.  Runs on ``device`` (default: the card;
     raises if there is none).  ``mesh`` (``parallel.sharding.batch_mesh``)
     shards each family's batch axis over its ranks, on the mesh's
-    device."""
+    device.  ``graph``: the device-resident solves (default), or
+    ``graph=False`` for the eager loops (a gloo ``mesh`` with a card's
+    tensors needs it)."""
     if mesh is not None:
         return {name: solve_batched_sharded(spec.fns, spec.x0_batch,
                                             spec.dims, opts, tols_fn(dtype),
-                                            mesh=mesh, dtype=dtype)
+                                            mesh=mesh, dtype=dtype,
+                                            graph=graph)
                 for name, spec in families.items()}
     return {name: solve_batched(spec.fns, spec.x0_batch, spec.dims, opts,
-                                tols_fn(dtype), dtype=dtype, device=device)
+                                tols_fn(dtype), dtype=dtype, device=device,
+                                graph=graph)
             for name, spec in families.items()}
 
 

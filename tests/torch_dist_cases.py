@@ -172,7 +172,8 @@ def sharding_cases(rank, world) -> dict:
         for B, seed in ((8, 1), (10, 2)):
             _dist.reset_collective_count()
             res = solve_batched_sharded(fns, hs65_starts(B, seed), dims,
-                                        Options(), tols, mesh=mesh, dtype=f64)
+                                        Options(), tols, mesh=mesh, dtype=f64,
+                                        graph=False)
             out[f"hs65_B{B}_D{D}"] = dict(
                 _batch_result(res), trips=run_batch.last_trips,
                 collectives=_dist.collective_count())
@@ -180,7 +181,7 @@ def sharding_cases(rank, world) -> dict:
         for every in (1, 3):
             res = solve_batched_sharded_mp(fns, mine, dims, Options(), tols,
                                            mesh=mesh, dtype=f64,
-                                           check_every=every)
+                                           check_every=every, graph=False)
             out[f"mp_D{D}_every{every}"] = dict(
                 _batch_result(res), local_x=local_lanes(res.x, mesh),
                 mine=mine,
@@ -189,9 +190,10 @@ def sharding_cases(rank, world) -> dict:
                                  device="cpu")
         opts = Options(max_iter=60, second_derivatives=False)
         fused = solve_suite_fused(fams, opts, Tols.for_dtype, mesh=mesh,
-                                  dtype=f64, fused=fuse_families(fams, "cpu"))
+                                  dtype=f64, fused=fuse_families(fams, "cpu"),
+                                  graph=False)
         bucketed = solve_suite_batched(fams, opts, Tols.for_dtype, mesh=mesh,
-                                       dtype=f64)
+                                       dtype=f64, graph=False)
         out[f"suite_D{D}"] = {
             "fused": {k: _batch_result(v) for k, v in fused.items()},
             "bucketed": {k: _batch_result(v) for k, v in bucketed.items()}}
@@ -358,7 +360,7 @@ def rows_cases(rank, world) -> dict:
             _dist.reset_collective_count()
             c = solve_rowsharded(f, x0, d, o, t, mesh=mesh, tsqr=tsqr,
                                  on_iteration=lambda c: trace.append(
-                                     trace_of(c)))
+                                     trace_of(c)), graph=False)
             with _dist.row_scope(mesh):
                 f_val = _dist.rows_dot(c.rx, c.rx)
             return {"x": c.x, "f": f_val, "exit_code": int(c.exit_code),
@@ -408,13 +410,147 @@ def card_cases(rank, world) -> dict:
         hs65_functions(mesh.device), hs65_starts(CARD_LANES, 4),
         Dims(*HS65_DIMS), Options(), Tols.for_dtype(torch.float64,
                                                      mesh.device),
-        mesh=mesh, dtype=torch.float64)
+        mesh=mesh, dtype=torch.float64, graph=False)
     return {"exit_code": res.exit_code.cpu(), "x": res.x.cpu(),
             "launches": cpqr_batched_packed.launches,
             "plain_calls": cpqr_batched_packed_plain.cuda_calls}
 
 
-CASES = {"sharding": sharding_cases, "rows": rows_cases, "card": card_cases}
+# The row-sharded pivot loop at kmax >= 192 (the reference's sharded
+# cpqr_blocked takes the downdated-norm panel loop there): a 400 x 200
+# buffer built so that the exact-norm and the downdated-norm rules pick
+# different pivots at step 1, by exact arithmetic rather than rounding.
+# Column 0 (2^28 e_0) pivots first and its reflector negates row 0
+# exactly.  Column 5 is 2^27 e_0 + e_300: its norm^2 2^54 + 1 rounds to
+# 2^54 at the panel start, so the downdate by R's row 0 leaves exactly 0
+# although 1 remains; column 7 (0.5 e_10 + 0.5 e_250, norm^2 0.5) beats
+# every other column (0.01 N(0, 1) entries).  Exact norms pivot column 5
+# at step 1, downdated ones column 7.
+LARGE_QR = dict(m=400, n=200, seed=5)
+
+
+def large_qr_matrix() -> np.ndarray:
+    rng = np.random.default_rng(LARGE_QR["seed"])
+    M = 0.01 * rng.normal(size=(LARGE_QR["m"], LARGE_QR["n"]))
+    M[:, 0], M[0, 0] = 0.0, 2.0 ** 28
+    M[:, 5], M[0, 5], M[300, 5] = 0.0, 2.0 ** 27, 1.0
+    M[:, 7], M[10, 7], M[250, 7] = 0.0, 0.5, 0.5
+    return M
+
+
+def _readbacks(fn):
+    """(fn(), the read-backs it took)."""
+    from enlsip_tpu_torch import _device
+    _device.reset_readback_count()
+    out = fn()
+    return out, _device.readback_count()
+
+
+def _raises(fn) -> str:
+    try:
+        fn()
+    except (ValueError, RuntimeError) as e:
+        return f"{type(e).__name__}: {e}"
+    return ""
+
+
+def graph_cases(rank, world) -> dict:
+    """Every sharded entry point with graph=True (on the CPU: the
+    rehearsal of the device-resident code under forbid_readbacks) and
+    graph=False on the same inputs, with the read-backs of each solve and
+    the refusals of graph=True."""
+    from enlsip_tpu_torch import _dist, _graph
+    from enlsip_tpu_torch._dist import Mesh
+    from enlsip_tpu_torch.core.types import Dims, Options, Tols
+    from enlsip_tpu_torch.ops.rows_qr import cpqr_rows
+    from enlsip_tpu_torch.parallel import (fuse_families, hs_scenario_batch,
+                                           local_functions, local_lanes,
+                                           run_batch, solve_batched_sharded,
+                                           solve_batched_sharded_mp,
+                                           solve_rowsharded,
+                                           solve_suite_fused)
+    fns, dims = hs65_functions(), Dims(*HS65_DIMS)
+    tols = Tols.for_dtype(torch.float64)
+    f64 = torch.float64
+    out = {}
+    for D, mesh in _meshes(rank, world, "batch").items():
+        for graph in (True, False):
+            tag = f"D{D}_graph{graph}"
+            res, rb = _readbacks(lambda: solve_batched_sharded(
+                fns, hs65_starts(8, 1), dims, Options(), tols, mesh=mesh,
+                dtype=f64, graph=graph))
+            out[f"hs65_{tag}"] = dict(_batch_result(res), readbacks=rb,
+                                      trips=run_batch.last_trips)
+            mine = local_lanes(torch.as_tensor(hs65_starts(8, 1)), mesh)
+            for every in (1, 3):
+                res, rb = _readbacks(lambda: solve_batched_sharded_mp(
+                    fns, mine, dims, Options(), tols, mesh=mesh, dtype=f64,
+                    check_every=every, graph=graph))
+                out[f"mp_{tag}_every{every}"] = dict(
+                    _batch_result(res), readbacks=rb,
+                    trips=run_batch.last_trips)
+            fams = hs_scenario_batch(SUITE_FAMILIES, per_family=4, seed=1,
+                                     device="cpu")
+            fused = solve_suite_fused(
+                fams, Options(max_iter=60, second_derivatives=False),
+                Tols.for_dtype, mesh=mesh, dtype=f64,
+                fused=fuse_families(fams, "cpu"), graph=graph)
+            out[f"suite_{tag}"] = {k: _batch_result(v)
+                                   for k, v in fused.items()}
+        # a gloo group with tensors off the CPU (a meta device stands in
+        # for the card) refuses the device-resident path
+        off = Mesh(mesh.group, mesh.size, mesh.rank, torch.device("meta"),
+                   mesh.axis)
+        with _graph._mode("emulate"):
+            gloo_collective = _raises(lambda: _dist.all_reduce(
+                torch.zeros(2, device="meta"), mesh))
+        out[f"refusals_batch_D{D}"] = {
+            "gloo_collective_device_resident": gloo_collective,
+            "gloo_off_cpu_sharded": _raises(lambda: solve_batched_sharded(
+                fns, hs65_starts(8, 1), dims, Options(), tols, mesh=off,
+                dtype=f64))}
+
+    rfns, rdims, ropts, rtols = rows_problem()
+    M = torch.tensor(large_qr_matrix())
+    for D, mesh in _meshes(rank, world, "rows").items():
+        lf = local_functions(rfns, rdims, mesh)
+        x0 = torch.zeros(ROWS_N, dtype=f64)
+        problems = {"dense": (lf, x0, rdims, ropts, rtols, False),
+                    "tsqr": (lf, x0, rdims, ropts, rtols, True),
+                    "factored": (*tall_solve_args("factored", (mesh.rank, D)),
+                                 False)}
+        for name, (f, x, d, o, t, tsqr) in problems.items():
+            for graph in (True, False):
+                _dist.reset_collective_count()
+                c, rb = _readbacks(lambda: solve_rowsharded(
+                    f, x, d, o, t, mesh=mesh, tsqr=tsqr, graph=graph))
+                with _dist.row_scope(mesh):
+                    f_val = _dist.rows_dot(c.rx, c.rx)
+                out[f"rows_{name}_D{D}_graph{graph}"] = {
+                    "x": c.x, "f": f_val, "exit_code": int(c.exit_code),
+                    "n_iter": int(c.nb_iter), "readbacks": rb,
+                    "collectives": _dist.collective_count(),
+                    "last": solve_rowsharded.last if graph else None}
+        off = Mesh(mesh.group, mesh.size, mesh.rank, torch.device("meta"),
+                   mesh.axis)
+        out[f"refusals_rows_D{D}"] = {
+            "on_iteration": _raises(lambda: solve_rowsharded(
+                lf, x0, rdims, ropts, rtols, mesh=mesh,
+                on_iteration=lambda c: None)),
+            "gloo_off_cpu": _raises(lambda: solve_rowsharded(
+                lf, x0, rdims, ropts, rtols, mesh=off))}
+        rows = LARGE_QR["m"] // D
+        block = M[mesh.rank * rows:(mesh.rank + 1) * rows]
+        with _dist.row_scope(mesh):
+            f = _graph.run(None, lambda b: cpqr_rows(
+                b, torch.tensor(LARGE_QR["n"]), mesh), (block,), "cpu")
+        out[f"large_qr_D{D}"] = {"perm": f.perm, "R": f.R, "V": f.V,
+                                 "T": f.T, "tau": f.tau}
+    return out
+
+
+CASES = {"sharding": sharding_cases, "rows": rows_cases, "card": card_cases,
+         "graph": graph_cases}
 
 
 def main(suite, rank, world, out_dir):
