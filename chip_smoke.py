@@ -23,12 +23,29 @@ solves, and prints one JSON object per line.  The last line is
 
 Lines of the giant-m slice: ``wy_kernel_cases`` holds each of the four
 entry points of ``ops/wy_hopper.py`` against its plain version at every
-listed shape in both dtypes (relative errors, equal bits of two launches,
-kernel / plain / bound times); ``giant_m`` lists the four configurations
+listed shape in both dtypes, and at float64 also at the edges of the
+float64 kernel's tiling (relative errors, equal bits of two launches, G
+symmetric to the bit, the tiling taken, kernel / plain / bound times);
+the ``build`` line carries, beside ptxas' registers and spill, the count
+of float64 tensor-core instructions (DMMA) in every kernel of
+``wy_gram_f64.cu`` (the script fails if one has none or spills);
+``giant_m`` lists the four configurations
 (a: factored hooks, no second derivatives; b: factored hooks, second
 derivatives; c: dense Jacobian; d: dense, ``tall_qr="qr"``) with seconds
 per solve, iterations, exit code, active constraints, launches of each
 kernel, read-backs per iteration and peak device memory.
+``giant_m_float64`` solves the same problem at float64 and full width in
+the four configurations on the captured graph (one replay and one
+read-back a solve; seconds of three replays, the capturing call's
+seconds, iterations, exit code, active constraints at the solution,
+|x[:5] - blo|, ||x - x_a|| / ||x_a||, launches of each kernel counted on
+the card at replay, peak memory) and (a) once more through the eager
+loop (x, exit code and iterations equal to the bit); it fails unless
+every exit code is > 0, >= 5 constraints are active with x[:5] at blo to
+1e-6, (b)-(d) are within 1e-9 of (a) and only the configuration's kernel
+ran.  The ``kernels`` line has a ``<name>_float64`` entry for each of
+B3-B6 (source ``csrc/wy_gram_f64.cu``; times at 5,000,000 rows and
+``at_200000_rows``; launches from ``giant_m_float64``).
 
 Lines of the B2 phase (the batched tiny-matrix CPQR): every row of the
 ``kernels`` line's B2 ``cases`` has the group size ``G`` (threads a
@@ -440,13 +457,22 @@ def check_shared_memory_mirrors():
                                          (257, 193, 64, 8), (300, 7, 7, 4)]:
         assert clib.cpqr_resident_shared_bytes(rows, cols, blocks, itemsize) == \
             cpqr_mod._resident_shared_bytes(rows, cols, blocks, itemsize)
+    # each dtype's kernel against its own layout's mirror; the float32
+    # layout sized at float64 against the gate's admission rule
     for n, k, dtype in [(100, 50, torch.float32), (100, 50, torch.float64),
                         (128, 128, torch.float32), (7, 3, torch.float64),
-                        (32, 1, torch.float32), (16, 16, torch.float64)]:
+                        (32, 1, torch.float32), (16, 16, torch.float64),
+                        (128, 64, torch.float64), (128, 84, torch.float64),
+                        (100, 100, torch.float64), (13, 13, torch.float64)]:
         itemsize = torch.empty(0, dtype=dtype).element_size()
+        lib = wy._library(dtype)
+        for rb, stages in (wy.TILINGS_F64 if dtype == torch.float64
+                           else wy.TILINGS):
+            assert lib.wy_gram_shared_bytes(n, k, itemsize, rb, stages) == \
+                wy._shared_bytes(n, k, dtype, rb, stages), (n, k, dtype, rb)
         for rb, stages in wy.TILINGS:
             assert wlib.wy_gram_shared_bytes(n, k, itemsize, rb, stages) == \
-                wy._shared_bytes(n, k, dtype, rb, stages), (n, k, dtype, rb)
+                wy._admission_bytes(n, k, dtype, rb, stages), (n, k, dtype, rb)
     blib = cb._library()
     for rows, cols in [(40, 10), (10, 20), (3, 7), (64, 32), (1, 2048),
                        (2048, 1), (33, 17)]:
@@ -793,6 +819,24 @@ WY_CASES = [
     ("k = 1", 65_537, 32, 1, False),
     ("k = n", 8192, 16, 16, False),
 ]
+# float64 only: the edges of the float64 kernel's mma tiling (n padded to
+# 8 with a depth-4 step where n % 8 is 1..4, k padded to 8, 16 x 16 Gram
+# blocks) and of its three tilings, at row counts = 1 mod 64 or 5 mod 8.
+# At n = 128 the gate admits k <= 84 at float64, so k = n is taken at
+# n = 7, 13 and 100.
+WY_EDGE_CASES_F64 = [
+    ("n = 7, k = 1", 4161, 7, 1, False),
+    ("n = 7, k = 3", 4101, 7, 3, False),
+    ("n = 7, k = n", 4101, 7, 7, False),
+    ("n = 13, k = 1", 4101, 13, 1, False),
+    ("n = 13, k = 3", 4161, 13, 3, False),
+    ("n = 13, k = n", 4161, 13, 13, False),
+    ("n = 128, k = 1", 8197, 128, 1, False),
+    ("n = 128, k = 3", 4161, 128, 3, False),
+    ("n = 128, k = 64, 32-row tiles", 4161, 128, 64, False),
+    ("n = 128, k = 84, 16-row tiles", 4101, 128, 84, False),
+    ("n = 100, k = n, 16-row tiles", 6401, 100, 100, False),
+]
 WY_NAMES = ["wy_right_apply", "wy_gram_project", "wy_gram_project_rowscale",
             "wy_gram_project_noapply"]
 # relative to max |JQ1| for JQ1 and to the norms of G and p
@@ -882,6 +926,7 @@ def check_wy_case(name, m, n, k, main_path, dtype):
         bound_ms, bound_by = wy_bound(kernel, m, n, k, dtype)
         out.append({"kernel": kernel, "case": name, "shape": [m, n, k],
                     "dtype": str(dtype).replace("torch.", ""),
+                    "tiling": wy._tiling(n, k, dtype),
                     "main_path": main_path, "bits_equal": bits_equal,
                     "G_symmetric_to_the_bit": True if "G" in parts else None,
                     "rel_err": errs, "max_abs_err": max(errs.values()),
@@ -893,7 +938,8 @@ def check_wy_case(name, m, n, k, main_path, dtype):
 def check_wy_kernels():
     cases = []
     for dtype in (torch.float64, torch.float32):
-        for case in WY_CASES:
+        for case in WY_CASES + (WY_EDGE_CASES_F64 if dtype == torch.float64
+                                else []):
             cases += check_wy_case(*case, dtype)
             torch.cuda.empty_cache()
     return cases
@@ -983,15 +1029,147 @@ def solve_giant_m():
     return out, gm, kept
 
 
-def _wy_kernel_entries(wcases, giant, gloo, graph_rows):
+# the float64 giant-m phase: (b)-(d) against (a), and the active bounds
+GIANT64_DX_RTOL = 1e-9
+GIANT64_BLO_ATOL = 1e-6
+# a constraint counts as active at the solution where c_i(x) <= this
+ACTIVE_ATOL = 1e-8
+
+
+def giant_m_float64(replays=3):
+    """The giant-m problem at float64 and full width (5,000,000 x 100, 50
+    inequalities, max_iter = 8, data drawn on the card from seed 3) in the
+    four configurations, each the one-replay solve of the device-resident
+    loop: a first call that captures the graph, then ``replays`` timed
+    solves (one replay and one read-back each), every count set to 0
+    just before each and read just after.  Active constraints are counted
+    at the solution (c_i(x) <= ACTIVE_ATOL).  (a) is solved once more by
+    the eager loop: x, exit code and iterations equal to the bit."""
+    _graph.clear_graph_cache()
+    d = torch.float64
+    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=d)
+    tols = et.Tols.for_dtype(d, DEV)
+    rows, x_a = [], None
+    for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
+        _graph.clear_graph_cache()      # the last configuration's pools
+        fns = gm.factored if factored else gm.dense
+        opts = et.Options(second_derivatives=second, max_iter=8,
+                          tall_qr=tall_qr)
+        solve = lambda graph=True: core_solve(fns, gm.x0, gm.dims, opts, tols,
+                                              dtype=d, graph=graph)
+        _graph.reset_graph_stats()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        solve()
+        torch.cuda.synchronize()
+        first, stats = time.time() - t0, _graph.graph_stats()
+        peak_first = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        seconds, readbacks = [], []
+        for _ in range(replays):
+            reset_launch_counts()
+            _device.reset_readback_count()
+            t0 = time.time()
+            res = solve()
+            torch.cuda.synchronize()
+            seconds.append(time.time() - t0)
+            launches = wy.launch_counts()
+            readbacks.append(_device.readback_count())
+        x = res.x
+        n_active = int((fns.cons(x) <= ACTIVE_ATOL).sum())
+        row = {"config": config, "factored_hooks": factored,
+               "second_derivatives": second, "tall_qr": tall_qr,
+               "kernel": kernel, "dtype": "float64",
+               "seconds_per_solve": statistics.median(seconds),
+               "seconds_per_solve_min": min(seconds),
+               "seconds_per_solve_max": max(seconds),
+               "first_call_seconds": first,
+               "capture_seconds": stats["capture_s"],
+               "iterations": res.n_iter, "exit_code": res.exit_code,
+               "objective": res.f, "active_constraints": n_active,
+               "max_abs_x_minus_blo": float((x[:5] - gm.blo).abs().max()),
+               "launches": launches, "readbacks_per_solve": readbacks,
+               # the capturing call's peak holds the graph's pool as it is
+               # made; the replays allocate nothing new
+               "peak_GB_first_call": peak_first,
+               "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+        if x_a is None:
+            x_a = x
+        row["rel_dx_vs_a"] = float(torch.linalg.norm(x - x_a)
+                                   / torch.linalg.norm(x_a))
+        if config == "a":
+            reset_launch_counts()
+            _device.reset_readback_count()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.time()
+            eager = solve(graph=False)
+            torch.cuda.synchronize()
+            row["eager"] = {
+                "seconds": time.time() - t0,
+                "readbacks": _device.readback_count(),
+                "launches": wy.launch_counts(),
+                "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                "x_bits_equal": bool(torch.equal(eager.x, x)),
+                "exit_code": eager.exit_code, "iterations": eager.n_iter}
+        rows.append(row)
+        emit({"giant_m_float64_row": row})     # printed before it is checked
+        assert res.exit_code > 0, row
+        assert readbacks == [1] * replays, row
+        assert bool(torch.isfinite(x).all()) and x.shape == (GIANT_N,), row
+        assert n_active >= 5, row
+        assert row["max_abs_x_minus_blo"] <= GIANT64_BLO_ATOL, row
+        assert row["rel_dx_vs_a"] <= GIANT64_DX_RTOL, row
+        assert launches[kernel] > 0, row
+        assert all(v == 0 for name, v in launches.items()
+                   if name != kernel), row
+        if config == "a":
+            e = row["eager"]
+            assert e["x_bits_equal"] and e["exit_code"] == res.exit_code \
+                and e["iterations"] == res.n_iter, row
+    del gm
+    _graph.clear_graph_cache()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _wy_kernel_entries(wcases, giant, gloo, graph_rows, giant64):
     lines = {"wy_right_apply": 52, "wy_gram_project": 60,
              "wy_gram_project_rowscale": 86, "wy_gram_project_noapply": 118}
     by_kernel = {row["kernel"]: row for row in giant}
+    by_kernel64 = {row["kernel"]: row for row in giant64}
     entries = []
     for name in WY_NAMES:
         mine = [c for c in wcases if c["kernel"] == name]
-        head = next(c for c in mine if c["main_path"]
-                    and c["dtype"] == "float32")
+        mine32 = [c for c in mine if c["dtype"] == "float32"]
+        mine64 = [c for c in mine if c["dtype"] == "float64"]
+        at = lambda cases, m: next(c for c in cases if c["shape"][0] == m
+                                   and c["main_path"])
+        head, head64 = at(mine32, GIANT_M), at(mine64, GIANT_M)
+        solve64 = at(mine64, GIANT64_M)
+        entries.append({
+            "name": f"{name}_float64", "route": "cuda",
+            "source": "enlsip_tpu_torch/csrc/wy_gram_f64.cu",
+            "replaces": f"enlsip_tpu/ops/pallas_wy.py:{lines[name]}",
+            "launches": by_kernel64[name]["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in mine64),
+            "tolerance": "relative to max |JQ1| (JQ1) and to the norms of G "
+                         "and p, against the plain version at float64: "
+                         "1e-11; two launches give equal bits; G symmetric "
+                         "to the bit",
+            "ms": head64["ms"], "plain_ms": head64["plain_ms"],
+            "bound_ms": head64["bound_ms"], "bound_by": head64["bound_by"],
+            "library_ms": None,
+            "at_200000_rows": {k: solve64[k] for k in
+                               ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "timed_at": "5000000 x 100, k = 50, float64 (the giant_m_float64 "
+                        "path; at_200000_rows: the float64 row-sharded "
+                        "check's one-card solve); plain_ms is the chain of "
+                        "library matrix products, not a single call; "
+                        "launches: the giant_m_float64 configuration that "
+                        "reaches it, counted at its last replay",
+            "cases": mine64})
         entries.append({
             "name": name, "route": "cuda",
             "source": "enlsip_tpu_torch/csrc/wy_gram.cu",
@@ -1003,18 +1181,17 @@ def _wy_kernel_entries(wcases, giant, gloo, graph_rows):
             "launches_rowsharded_graph_nccl_replay": next(
                 row["graph"]["launches"][name] for row in graph_rows
                 if row["kernel"] == name),
-            "max_abs_err": max(c["max_abs_err"] for c in mine),
+            "max_abs_err": max(c["max_abs_err"] for c in mine32),
             "tolerance": "relative to max |JQ1| (JQ1) and to the norms of G "
-                         "and p: float64 vs the plain version 1e-11; float32 "
-                         "vs the plain version in float64 5e-6 (JQ1), 2e-5 "
-                         "(G, p); two launches give equal bits",
+                         "and p, against the plain version in float64: 5e-6 "
+                         "(JQ1), 2e-5 (G, p); two launches give equal bits",
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": None,
             "timed_at": "5000000 x 100, k = 50, float32 (the giant-m main "
                         "path); plain_ms is the chain of library matrix "
                         "products, not a single call",
-            "cases": mine})
+            "cases": mine32})
     return entries
 
 
@@ -2265,9 +2442,18 @@ def main() -> None:
     t0 = time.time()
     _build.build_all()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    ptxas = {n: _build.resource_usage(n) for n in sources}
+    dmma = _build.sass_opcodes(_build.library_path("wy_gram_f64"), "DMMA")
     emit({"build": {"seconds": time.time() - t0,
                     "sources": [f"{n}.cu" for n in sources],
-                    "ptxas": {n: _build.resource_usage(n) for n in sources}}})
+                    "ptxas": ptxas, "sass_dmma_wy_gram_f64": dmma}})
+    # the float64 WY kernel's products are float64 tensor-core mma, and
+    # none of its instantiations spills
+    f64_kernels = [r for r in ptxas["wy_gram_f64"]
+                   if "wy_gram_f64_kernel" in r["kernel"]]
+    assert f64_kernels and all(dmma.get(r["kernel"], 0) > 0
+                               and r.get("spill_bytes") == [0, 0]
+                               for r in f64_kernels), (f64_kernels, dmma)
 
     check_shared_memory_mirrors()
     emit({"grid_barrier_us": grid_barrier_us()})
@@ -2298,6 +2484,7 @@ def main() -> None:
     giant, gm, giant_kept = solve_giant_m()
     emit({"giant_m": giant})
     _graph.clear_graph_cache()
+    giant64 = phase("giant_m_float64", giant_m_float64)
     phase("device_loop", device_loop)
     cpqr_batched_packed_plain.cuda_calls = 0
     hs_rows = phase("hs_suite", hs_suite)
@@ -2380,7 +2567,7 @@ def main() -> None:
         "l2_copy_GBps": l2_rate,
         "cases": cases}, _batched_kernel_entry(bcases, launches_batched,
                                               launches_by_path),
-        *_wy_kernel_entries(wcases, giant, gloo, graph_rows)]})
+        *_wy_kernel_entries(wcases, giant, gloo, graph_rows, giant64)]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

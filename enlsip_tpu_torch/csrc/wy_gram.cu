@@ -56,8 +56,10 @@
 //   * JQ1 leaves the chip from the finished tile in shared memory with
 //     16-byte coalesced stores (where a row of J is a multiple of 16
 //     bytes; element stores otherwise).
-//   * float64 runs the same code on plain FMAs (the float64 tensor-core
-//     mma is not used), one block an SM.
+//   * The kernel below is instantiated for float32 only.  float64 has a
+//     design of its own on the float64 tensor cores, in wy_gram_f64.cu,
+//     which includes this file for the copies, the walk's arithmetic and
+//     the reduce kernel.
 
 #include <cuda_runtime.h>
 
@@ -93,12 +95,6 @@ __device__ __forceinline__ void load4<float>(const float* p, float (&x)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
-template <>
-__device__ __forceinline__ void load4<double>(const double* p, double (&x)[4]) {
-  const double2 a = *reinterpret_cast<const double2*>(p);
-  const double2 b = *reinterpret_cast<const double2*>(p + 2);
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
 
 // Asynchronous copies global -> shared; `bytes` of the source are read
 // and the rest of the destination is zero-filled.
@@ -131,11 +127,6 @@ __device__ __forceinline__ void store4(T* p, const T (&x)[4]);
 template <>
 __device__ __forceinline__ void store4<float>(float* p, const float (&x)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(x[0], x[1], x[2], x[3]);
-}
-template <>
-__device__ __forceinline__ void store4<double>(double* p, const double (&x)[4]) {
-  *reinterpret_cast<double2*>(p) = make_double2(x[0], x[1]);
-  *reinterpret_cast<double2*>(p + 2) = make_double2(x[2], x[3]);
 }
 
 template <typename T, bool GRAM, bool SCALE, bool OUT, int RB, int NS>
@@ -535,9 +526,9 @@ int run(const void* J, const void* V, const void* W, const void* rx,
 // Launches on `stream`, allocates nothing, does not synchronise, and
 // returns the first CUDA error (0 = success).
 //
-// The float64 instantiations are a translation unit of their own:
-// csrc/wy_gram_f64.cu includes this file with WY_GRAM_F64 defined, so the
-// two halves compile side by side and load as two libraries.
+// The float64 entry point is csrc/wy_gram_f64.cu's: it includes this file
+// with WY_GRAM_F64 defined, so the two halves compile side by side and load
+// as two libraries, each with its own wy_gram_shared_bytes.
 #ifndef WY_GRAM_F64
 extern "C" int wy_gram_f32(const void* J, const void* V, const void* W,
                            const void* rx, const void* s, void* out, void* ws,
@@ -546,15 +537,6 @@ extern "C" int wy_gram_f32(const void* J, const void* V, const void* W,
   return run<float>(J, V, W, rx, s, out, ws, gp, m, n, k, variant, nparts,
                     stream);
 }
-#else
-extern "C" int wy_gram_f64(const void* J, const void* V, const void* W,
-                           const void* rx, const void* s, void* out, void* ws,
-                           void* gp, int m, int n, int k, int variant,
-                           int nparts, void* stream) {
-  return run<double>(J, V, W, rx, s, out, ws, gp, m, n, k, variant, nparts,
-                     stream);
-}
-#endif
 
 // Shared memory (bytes) of the tiling with `rb`-row tiles in a ring of
 // `stages`, as the kernel lays it out.
@@ -562,6 +544,7 @@ extern "C" long long wy_gram_shared_bytes(int n, int k, int itemsize, int rb,
                                           int stages) {
   return (long long)(shared_elems(n, k, itemsize, rb, stages) * itemsize);
 }
+#endif
 
 extern "C" const char* wy_gram_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

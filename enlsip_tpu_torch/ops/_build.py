@@ -82,10 +82,13 @@ def resource_usage(name: str) -> list[dict]:
     library was built: mangled name, registers, spill bytes (stores,
     loads), static shared memory."""
     log = library_path(name).with_suffix(".log")
-    if not log.exists():
-        return []
+    return ptxas_rows(log.read_text()) if log.exists() else []
+
+
+def ptxas_rows(log: str) -> list[dict]:
+    """One row a kernel from the text ``nvcc -Xptxas -v`` printed."""
     rows, kernel = [], None
-    for line in log.read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             kernel = {"kernel": m.group(1)}
@@ -102,6 +105,25 @@ def resource_usage(name: str) -> list[dict]:
             sm = re.search(r"(\d+) bytes smem", line)
             kernel["static_shared_bytes"] = int(sm.group(1)) if sm else 0
     return rows
+
+
+def sass_opcodes(path: Path, opcode: str) -> dict:
+    """How many instructions of ``opcode`` (for example ``DMMA``, the
+    float64 tensor-core product) the SASS of every kernel of the library
+    at ``path`` holds, by mangled kernel name, as ``cuobjdump -sass``
+    lists it."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(path)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = 0
+        elif kernel is not None and re.search(rf"\b{opcode}\b", line):
+            counts[kernel] += 1
+    return counts
 
 
 def build_all(names=None) -> dict[str, Path]:

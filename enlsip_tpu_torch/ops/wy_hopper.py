@@ -28,9 +28,11 @@ Beside the kernel:
   ``wy_gram_project_noapply.launches`` (:func:`launch_counts` reads them
   all, :func:`reset_launch_counts` zeroes them).
 
-The products inside the kernel are plain FMAs of the working type: full
-float32 for float32 inputs under every ``Options.matmul_precision``
-setting (the accuracy class of ``"float32"``), float64 for float64.
+The products inside the kernel are plain FMAs for float32 inputs (full
+float32 under every ``Options.matmul_precision`` setting, the accuracy
+class of ``"float32"``) and float64 tensor-core ``mma`` for float64
+(``csrc/wy_gram_f64.cu``: IEEE double products and sums, the accuracy
+class of the float64 chain).
 
 Differences from the TPU wrappers, all deliberate: no row-block divisor
 search and no ``rows % 8`` leg of the gate (a ragged last block is
@@ -62,10 +64,14 @@ MAX_SHARED_BYTES = 232_448
 # Partial Gram sums kept (= blocks launched); fixed, so the summation
 # order does not depend on the card.
 MAX_PARTS = 256
-# (rows of a tile, tiles in the ring), in the order the kernel tries them:
-# two 64-row tiles so that one loads while the other computes, else one
-# 32-row tile.
+# (rows of a tile, tiles in the ring), in the order the float32 kernel
+# tries them: two 64-row tiles so that one loads while the other computes,
+# else one 32-row tile.  The dispatch gate admits a panel at both dtypes
+# where the float32 layout of one of these fits (``_admitted``).
 TILINGS = ((64, 2), (32, 1))
+# The float64 kernel's own layout (csrc/wy_gram_f64.cu) and its tilings,
+# in the order it tries them; one of them fits every admitted panel.
+TILINGS_F64 = ((64, 2), (32, 2), (16, 1))
 
 _APPLY, _GRAM, _GRAM_SCALE, _GRAM_SCALE_NOOUT = range(4)
 
@@ -81,22 +87,50 @@ def _row_stride(cols: int, itemsize: int) -> int:
     return np_ + 4 if (np_ * itemsize) % 128 == 0 else np_
 
 
-def _shared_bytes(cols: int, k: int, dtype, row_block: int = 64,
-                  stages: int = 2) -> int:
-    """Shared memory of one block: V (n, kp), W (k, np), ``stages`` tiles
-    (row_block, np), X^T (k, row_block), and rx and s beside every tile
-    (kp = k padded to 4, np the padded row stride), as
-    ``csrc/wy_gram.cu::shared_elems`` lays it out."""
+def _admission_bytes(cols: int, k: int, dtype, row_block: int = 64,
+                     stages: int = 2) -> int:
+    """Shared memory of one block of the float32 layout, sized for the
+    dtype: V (n, kp), W (k, np), ``stages`` tiles (row_block, np), X^T
+    (k, row_block), and rx and s beside every tile (kp = k padded to 4, np
+    the padded row stride), as ``csrc/wy_gram.cu::shared_elems`` lays it
+    out.  The gate's admission rule at both dtypes."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
     np_, kp = _row_stride(cols, itemsize), _pad4(k)
     return (cols * kp + k * np_ + stages * row_block * np_ + k * row_block
             + 2 * stages * row_block) * itemsize
 
 
+def _shared_bytes(cols: int, k: int, dtype, row_block: int = 64,
+                  stages: int = 2) -> int:
+    """Shared memory of one block of the kernel of ``dtype``, as its
+    source lays it out.  float32: :func:`_admission_bytes`.  float64
+    (``csrc/wy_gram_f64.cu::shared_elems``): ``stages`` tiles
+    (row_block, np), X (row_block, kx), -W (k8, np), V (n4, kx), and rx
+    and s beside every tile, where n4 = n padded to 4, np = n4 padded to
+    4 mod 8, k8 = k padded to 8 and kx = k8 + 4."""
+    if dtype != torch.float64:
+        return _admission_bytes(cols, k, dtype, row_block, stages)
+    n4, k8 = _pad4(cols), -(-k // 8) * 8
+    np_ = n4 if n4 % 8 else n4 + 4
+    kx = k8 + 4
+    return (stages * row_block * np_ + row_block * kx + k8 * np_ + n4 * kx
+            + 2 * stages * row_block) * 8
+
+
+def _admitted(cols: int, k: int, dtype) -> bool:
+    """Whether the gate admits an (n, k) panel: the float32 layout, sized
+    for the dtype, fits one of :data:`TILINGS`."""
+    return any(_admission_bytes(cols, k, dtype, rb, stages) <= MAX_SHARED_BYTES
+               for rb, stages in TILINGS)
+
+
 def _tiling(cols: int, k: int, dtype):
-    """The first of :data:`TILINGS` that fits the card's shared memory,
-    or None."""
-    for rb, stages in TILINGS:
+    """The (row_block, stages) the kernel of ``dtype`` takes for an
+    admitted panel: the first of its tilings that fits the card's shared
+    memory; None where the gate does not admit the panel."""
+    if not _admitted(cols, k, dtype):
+        return None
+    for rb, stages in TILINGS_F64 if dtype == torch.float64 else TILINGS:
         if _shared_bytes(cols, k, dtype, rb, stages) <= MAX_SHARED_BYTES:
             return rb, stages
     return None
@@ -105,7 +139,7 @@ def _tiling(cols: int, k: int, dtype):
 def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
     """Dispatch gate, a pure function of shape, dtype and device: tall
     (``rows >= 32 cols`` and ``rows >= 4096``) float32/float64 applies
-    whose panel fits the kernel's tiling.
+    whose panel the kernel's tiling admits (:func:`_admitted`).
 
     True means "take the fused form", not "a kernel runs": the wrappers
     launch the kernel on a CUDA tensor and compute the same function with
@@ -116,7 +150,7 @@ def use_wy_hopper(rows: int, cols: int, k: int, dtype, device) -> bool:
     return (dev.type in ("cuda", "cpu") and dtype in _CTYPES
             and rows >= 32 * cols and rows >= 4096
             and 1 <= cols <= MAX_COLS and 1 <= k
-            and _tiling(cols, k, dtype) is not None
+            and _admitted(cols, k, dtype)
             and rows < 2 ** 31 - ROW_BLOCK)
 
 

@@ -164,12 +164,16 @@ def test_dispatch_gate():
     (100, 20, torch.float32, (64, 2)),
     (7, 3, torch.float32, (64, 2)),
     (128, 128, torch.float32, (32, 1)),     # no room for two 64-row tiles
-    (128, 64, torch.float64, (32, 1)),
+    (128, 64, torch.float64, (32, 2)),      # float64: two 32-row tiles
+    (128, 84, torch.float64, (16, 1)),      # the largest k admitted at n = 128
+    (100, 100, torch.float64, (16, 1)),
     (128, 128, torch.float64, None),
 ])
 def test_tiling_by_shape(n, k, dtype, tiling):
-    """Two 64-row tiles in a ring where the panel leaves room, one 32-row
-    tile otherwise, nothing where even that does not fit."""
+    """float32: two 64-row tiles in a ring where the panel leaves room, one
+    32-row tile otherwise.  float64 (its own layout): two 64-row tiles,
+    else two 32-row tiles, else one 16-row tile.  Nothing where the gate
+    does not admit the panel."""
     assert wy._tiling(n, k, dtype) == tiling
 
 
@@ -182,9 +186,24 @@ def test_shared_bytes_formula():
     assert wy._row_stride(100, 8) == 100 and wy._row_stride(16, 8) == 20
     assert wy._shared_bytes(100, 50, torch.float32) == \
         (100 * 52 + 50 * 100 + 2 * 64 * 100 + 50 * 64 + 4 * 64) * 4
-    assert wy._shared_bytes(100, 50, torch.float64, 32, 1) == \
+    assert wy._admission_bytes(100, 50, torch.float64, 32, 1) == \
         (100 * 52 + 50 * 100 + 32 * 100 + 50 * 32 + 2 * 32) * 8
     assert 2 * wy._shared_bytes(100, 50, torch.float32) <= wy.MAX_SHARED_BYTES
+
+
+def test_float64_shared_bytes_formula():
+    """The float64 layout: the tiles (rb, np), X (rb, kx), -W (k8, np),
+    V (n4, kx), rx and s beside every tile; np pads n to 4, then to 4 mod
+    8; k8 pads k to 8 and kx = k8 + 4."""
+    f64 = torch.float64
+    assert wy._shared_bytes(100, 50, f64, 32, 1) == \
+        (32 * 100 + 32 * 60 + 56 * 100 + 100 * 60 + 2 * 32) * 8
+    assert wy._shared_bytes(100, 50, f64) == \
+        (2 * 64 * 100 + 64 * 60 + 56 * 100 + 100 * 60 + 4 * 64) * 8
+    # n = 16: n4 = 16 is 0 mod 8, so the stride steps to 20; k = 3 pads to 8
+    assert wy._shared_bytes(16, 3, f64, 16, 1) == \
+        (16 * 20 + 16 * 12 + 8 * 20 + 16 * 12 + 2 * 16) * 8
+    assert wy._shared_bytes(100, 50, f64) <= wy.MAX_SHARED_BYTES
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -197,6 +216,73 @@ def test_gate_takes_every_panel_the_single_tile_layout_took(dtype):
         for k in range(1, 2 * wy.MAX_COLS + 1):
             if (2 * n * k + 64 * (n + k) + 128) * itemsize <= wy.MAX_SHARED_BYTES:
                 assert wy._tiling(n, k, dtype) is not None, (n, k)
+
+
+def _frozen_admission_bytes(n, k, itemsize, rb, stages):
+    """The gate's shared-memory rule as it stood before the float64 kernel
+    had a layout of its own (written out here, not read from the module):
+    V (n, kp), W (k, np), the tiles (rb, np), X^T (k, rb), rx and s."""
+    kp = -(-k // 4) * 4
+    np_ = -(-n // 4) * 4
+    if (np_ * itemsize) % 128 == 0:
+        np_ += 4
+    return (n * kp + k * np_ + stages * rb * np_ + k * rb + 2 * stages * rb) \
+        * itemsize
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_gate_is_frozen(dtype):
+    """``use_wy_hopper`` admits exactly the panels it admitted before the
+    float64 redesign, at both dtypes: the layout of a kernel may change,
+    the shapes the fused form takes (and with them the CPU's parity with
+    the JAX package) may not."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    admits = lambda n, k: any(
+        _frozen_admission_bytes(n, k, itemsize, rb, st) <= 232_448
+        for rb, st in ((64, 2), (32, 1)))
+    for n in range(1, 129):
+        kmax = max(k for k in range(1, 2000) if admits(n, k))
+        assert not any(admits(n, k) for k in range(kmax + 1, 2000))
+        for k in sorted(set(range(1, 130)) | set(range(130, 2000, 7))
+                        | {kmax, kmax + 1}):
+            for device in ("cuda", "cpu"):
+                assert wy.use_wy_hopper(32 * 128, n, k, dtype, device) == \
+                    (k <= kmax), (n, k, dtype, device)
+
+
+def test_float64_layout_fits_every_admitted_panel():
+    """Wherever the gate admits a float64 panel, one of the float64
+    kernel's tilings fits the card's shared memory, as the kernel sizes
+    it."""
+    f64 = torch.float64
+    for n in range(1, wy.MAX_COLS + 1):
+        for k in range(1, 1200):
+            if not wy._admitted(n, k, f64):
+                continue
+            tiling = wy._tiling(n, k, f64)
+            assert tiling in wy.TILINGS_F64, (n, k)
+            assert wy._shared_bytes(n, k, f64, *tiling) <= wy.MAX_SHARED_BYTES
+
+
+def test_ptxas_rows_read_registers_and_spill():
+    """The ``build`` line's registers and spill come from ``nvcc -Xptxas
+    -v``'s text, one row a kernel (``chip_smoke.py`` fails on a float64
+    WY kernel that spills)."""
+    from enlsip_tpu_torch.ops import _build
+    log = """ptxas info    : Compiling entry function '_Z1av' for 'sm_90a'
+ptxas info    : Function properties for _Z1av
+    72 bytes stack frame, 88 bytes spill stores, 112 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 16 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z1bv' for 'sm_90a'
+ptxas info    : Function properties for _Z1bv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers, 400 bytes cmem[0]
+"""
+    assert _build.ptxas_rows(log) == [
+        {"kernel": "_Z1av", "spill_bytes": [88, 112], "registers": 255,
+         "static_shared_bytes": 16},
+        {"kernel": "_Z1bv", "spill_bytes": [0, 0], "registers": 32,
+         "static_shared_bytes": 0}]
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_no_launch():
@@ -233,11 +319,21 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
         wy.wy_gram_project(J, V, T, rx)
 
 
+# (rows, n, k) at float64: the edges of the float64 kernel's mma tiling
+# (n = 7, 13, 128; k = 1, 3, n, or the largest k the gate admits at
+# n = 128) and of its three tilings, rows = 1 mod 64 or 5 mod 8
+EDGE_SHAPES_F64 = [(4161, 7, 1), (4101, 7, 3), (4101, 7, 7), (4101, 13, 1),
+                   (4161, 13, 3), (4161, 13, 13), (8197, 128, 1),
+                   (4161, 128, 3), (4161, 128, 64), (4101, 128, 84),
+                   (6401, 100, 100)]
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_the_card():
     """Needs the card and nvcc (run with ``pytest -m gpu``);
     ``chip_smoke.py`` makes the same comparison at the main path's
-    shapes.  float64, 1e-11 relative; two launches give equal bits."""
+    shapes.  float64, 1e-11 relative; two launches give equal bits; G
+    symmetric to the bit, at the float64 edge shapes too."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     J, V, T, rx, s = (tt(a).cuda() for a in _inputs(4100, 7, 3, seed=0))
@@ -265,3 +361,22 @@ def test_kernels_match_plain_versions_on_the_card():
     off = flat[1:].view(4096, 8).copy_(J8)
     with pytest.raises(ValueError, match="16-byte"):
         wy.wy_right_apply(off, V8, T8)
+    for rows, n, k in EDGE_SHAPES_F64:
+        J, V, T, rx, s = (tt(a).cuda() for a in _inputs(rows, n, k, seed=n + k))
+        for scale in (None, s):
+            got, again = (wy.wy_gram_project(J, V, T, rx, scale)
+                          for _ in range(2))
+            want = wy.wy_gram_project_plain(J, V, T, rx, scale)
+            assert torch.equal(got[1], got[1].T), (rows, n, k)
+            for g, a, w in zip(got, again, want):
+                assert torch.equal(g, a), (rows, n, k)
+                assert float((g - w).abs().max()) <= \
+                    1e-11 * float(w.abs().max()), (rows, n, k)
+        G, p = wy.wy_gram_project_noapply(J, V, T, rx, s)
+        assert torch.equal(G, G.T)
+        want = wy.wy_gram_project_plain(J, V, T, rx, s)
+        for g, w in ((G, want[1]), (p, want[2])):
+            assert float((g - w).abs().max()) <= 1e-11 * float(w.abs().max())
+        out = wy.wy_right_apply(J, V, T)
+        ref = wy.wy_right_apply_plain(J, V, T)
+        assert float((out - ref).abs().max()) <= 1e-11 * float(ref.abs().max())
