@@ -11,7 +11,8 @@ at once and prints no result.  It builds the CUDA kernels from
 its plain PyTorch version on the card at the shapes the main path gives
 it, drives the main paths through the public entry points —
 ``solve(CnlsModel)`` on Chained Rosenbrock n=1000 at float32 and
-float64, ``solve_batched`` on HS65 x 4096 lanes and on the ODE
+float64 (and n = 5000, 100, 10), ``solve_batched`` on HS65 x 4096 lanes,
+on Chained Rosenbrock n=1000 x 8 and n=10 x 1024 lanes and on the ODE
 parameter fit x 10,000 lanes with per-lane observations at float32, and
 the giant-m solve (5,000,000 residual rows x 100 parameters x 50
 constraints, float32) in the four configurations that reach the four
@@ -81,7 +82,8 @@ holds the fused float64 solve against one batch a family and
 ``checkpoint_resume`` a stopped, saved and resumed fused batch against
 the uninterrupted one (to the bit).  No padded shape may reach the
 batched factorization's plain version on the card
-(``cpqr_batched_packed_plain.cuda_calls`` stays 0 over these phases).  ``batched_ode_fit``
+(``cpqr_blocked.cuda_rank1["lanes"]``, the batched rank-1 route's calls
+on the card, stays 0 over these phases).  ``batched_ode_fit``
 lists the lanes that miss before and after escalation.
 
 Lines of the multi-device slice (``parallel/sharding.py``,
@@ -115,6 +117,33 @@ and wall seconds, peak memory.  The ``kernels`` line's B2
 row counts the sharded paths' launches by rank and at the NCCL rank's
 replays, and B3-B6 rows carry ``launches_rowsharded_by_rank`` and
 ``launches_rowsharded_graph_nccl_replay``.
+
+Lines of the batches of large problems (``ops/blocked_qr.batched_route``:
+a batch whose matrices have min(rows, cols) >= 192 runs B1 once a lane,
+``ops/cpqr_hopper.cpqr_hopper_lanes``) and of the JAX bench's other
+configurations: ``b1_stream_5000`` holds B1 at Chained Rosenbrock
+n=5000's A_act^T (5000 x 4998, 4998 steps) and J2 (9998 x 5000, 2 live
+columns), float32 and float64, which the dispatch sends to the stream
+route, against its plain version (the tolerances of ``check_kernels``);
+``b1_lanes`` holds the lane wrapper on 8 lanes of the batched cr1000
+path's A_act^T (1000 x 998) and J2 (1998 x 1000, 2 steps a lane) against
+8 single calls (equal bits, both dtypes).  ``batched_cr1000`` solves Chained Rosenbrock n=1000
+on 8 lanes (starts x0 + 0.1 N(0, 1), numpy seed 0) at float32 and
+float64 on the captured graph: seconds a batch, trips, read-backs (<= 2),
+B1's lane launches by route, the capture's and the replay's peak memory,
+x equal to the eager loop's to the bit, each lane's exit class equal to
+its own ``et.solve`` and f within 1e-3 / 1e-9 relative.
+``solve_cr5000`` solves n=5000 at float32 (``matmul_precision``
+"float32" and "bfloat16") and float64: first-order stationary, max |c|
+<= c_tol, B1 on the stream route, float32 within 1e-3 of float64, the
+float64 objective beside the n=1000 reference value.  ``small_n``: single
+float32 solves at n = 10 and 100 (one read-back each) and n = 10 on 1024
+lanes (seconds a solve; every lane converged).  ``examples`` runs each
+``examples/torch_*.py`` at its default size.  Every ``phase`` line
+carries ``rank1_calls_on_card``, the rank-1 routes' calls on the card in
+that phase (batched and single), and the run fails if the batched one is
+not 0 in any phase, or the single one in ``solve``, ``batched_cr1000``
+and ``solve_cr5000``.
 
 ``--kernels-only`` stops after the kernel checks.  ``--profile`` adds
 ``profile`` lines: one float32 solve of each main path under
@@ -158,7 +187,8 @@ from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
 from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
     cpqr_batched_packed, cpqr_batched_packed_plain, unpack_batched)
 from enlsip_tpu_torch.ops import cpqr_hopper as cpqr_mod
-from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_resident,
+from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_lanes,
+                                              cpqr_hopper_resident,
                                               cpqr_hopper_stream,
                                               fits_resident)
 from enlsip_tpu_torch.ops import wy_hopper as wy
@@ -212,6 +242,7 @@ def reset_launch_counts() -> None:
     (launches made now) and the device counters (launches that replays
     of captured graphs make)."""
     cpqr_hopper.launches = 0
+    cpqr_hopper_lanes.launches = cpqr_hopper_lanes.stream_launches = 0
     cpqr_batched_packed.launches = 0
     wy.reset_launch_counts()          # the WY counts and every device slot
 
@@ -220,16 +251,35 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def phase(name, fn):
+# phases in which a rank-1 route ran on the card where it must not:
+# (phase, its counts), asserted before the kernels line
+RANK1_FAULTS = []
+
+
+def phase(name, fn, hold=("lanes",)):
     """Run one phase, print its result as ``{name: result}`` with the
-    phase's wall seconds beside it, and return the result (a tuple's
-    first member is the printed part)."""
+    phase's wall seconds and the rank-1 routes' calls on the card in it
+    (``cpqr_blocked.cuda_rank1``, the only factorizations in which the
+    card runs a plain PyTorch loop), and return the result (a tuple's
+    first member is the printed part).  The counts named in ``hold`` must
+    be 0: by default the batched one ("lanes"), since every batch of the
+    smoke fits the batched kernel's gate or takes B1 a lane; "single" too
+    where every factorization has 192 pivots or more."""
     _graph.clear_graph_cache()    # a phase's graphs hold their pools
+    reset_rank1_calls()
     t0 = time.time()
     out = fn()
+    calls = dict(cpqr_blocked.cuda_rank1)
     emit({name: out[0] if isinstance(out, tuple) else out,
-          "phase_seconds": time.time() - t0})
+          "phase_seconds": time.time() - t0, "rank1_calls_on_card": calls})
+    if any(calls[k] for k in hold):
+        RANK1_FAULTS.append((name, calls))
     return out
+
+
+def reset_rank1_calls() -> None:
+    for k in cpqr_blocked.cuda_rank1:
+        cpqr_blocked.cuda_rank1[k] = 0
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1295,7 +1345,7 @@ def device_loop(profile=True):
     illegal memory access inside the profiler's window on an H100 (the
     same replays run clean without it)."""
     rows = []
-    cpqr_batched_packed_plain.cuda_calls = 0
+    cpqr_blocked.cuda_rank1["lanes"] = 0
     kw = chained_rosenbrock(1000)
     for dtype in (torch.float32, torch.float64):
         model = et.CnlsModel(**kw)
@@ -1386,7 +1436,7 @@ def _batch_row(name, solve, profile):
            "x_bits_equal": bool(lanes_equal.all()),
            "lanes_x_bits_equal": int(lanes_equal.sum()),
            "lanes_differing": torch.nonzero(~lanes_equal)[:, 0].tolist()[:50],
-           "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+           "rank1_lanes_on_card": cpqr_blocked.cuda_rank1["lanes"],
            **{m: {k: v for k, v in both[m].items() if k != "result"}
               for m in both}}
     if profile:
@@ -1395,28 +1445,50 @@ def _batch_row(name, solve, profile):
     assert row["exit_codes_equal"] and row["x_bits_equal"], row
     assert trips["graph"] == trips["eager"], row
     assert both["graph"]["readbacks"] <= 2, row
-    assert row["plain_calls_on_card"] == 0, row
+    assert row["rank1_lanes_on_card"] == 0, row
     return row
 
 
 # ------------------------------------------------------------ main path
+
+def _lane_launches():
+    total = _graph.launches(cpqr_hopper_lanes)
+    stream = _graph.launches(cpqr_hopper_lanes, "stream_launches")
+    return {"resident": total - stream, "stream": stream}
+
+
+def _counted(fn, reset_peak=True):
+    """``fn()`` with every count set to 0 just before it and read just
+    after: (result, {seconds, read-backs, B1 launches single / by lane
+    route, B2 launches, peak GB}); the peak since ``fn`` began, or since
+    the caller's own reset with ``reset_peak=False``."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    _device.reset_readback_count()
+    if reset_peak:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {"seconds": time.time() - t0,
+                 "readbacks": _device.readback_count(),
+                 "cpqr_hopper_launches": _graph.launches(cpqr_hopper),
+                 "cpqr_hopper_lanes_launches": _lane_launches(),
+                 "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
+                 "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+
 
 def solve_cr1000(dtype):
     """One warm-up solve, then one timed solve with the launch and
     read-back counts set to 0 just before and read just after."""
     kw = chained_rosenbrock(1000)
     et.solve(et.CnlsModel(**kw), dtype=dtype)          # warm-up
-    torch.cuda.synchronize()
     model = et.CnlsModel(**kw)
-    reset_launch_counts()
-    _device.reset_readback_count()
-    t0 = time.time()
-    et.solve(model, dtype=dtype)
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
-    launches = _graph.launches(cpqr_hopper)
+    _, stats = _counted(lambda: et.solve(model, dtype=dtype))
+    seconds = stats["seconds"]
+    launches = stats["cpqr_hopper_launches"]
     route = cpqr_hopper.last_route
-    readbacks = _device.readback_count()
+    readbacks = stats["readbacks"]
     iters = len(model.model_info.iterations_detail)
     name = str(dtype).replace("torch.", "")
     c_tol = float(np.sqrt(torch.finfo(dtype).eps))
@@ -1485,22 +1557,17 @@ def _hs65_batch(dtype, B, seed=0):
 def _timed_batch(solve, warmup=None):
     """Warm-up solve (``warmup`` if given, a smaller call of the same
     path), then one solve with every count set to 0 just before it and
-    read just after."""
+    read just after (:func:`_counted`; the caller's peak memory reset
+    stands)."""
     (warmup or solve)()
-    torch.cuda.synchronize()
-    reset_launch_counts()
-    _device.reset_readback_count()
-    t0 = time.time()
-    res = solve()
-    torch.cuda.synchronize()
-    seconds = time.time() - t0
+    res, counts = _counted(solve, reset_peak=False)
     trips = run_batch.last_trips
-    stats = {"seconds_per_batch_solve": seconds, "trips": trips,
-             "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
-             "launches_per_trip":
-                 _graph.launches(cpqr_batched_packed) / max(trips, 1),
-             "host_readbacks": _device.readback_count(),
-             "host_readbacks_per_trip": _device.readback_count() / max(trips, 1)}
+    launches, readbacks = counts["cpqr_batched_launches"], counts["readbacks"]
+    stats = {"seconds_per_batch_solve": counts["seconds"], "trips": trips,
+             "cpqr_batched_launches": launches,
+             "launches_per_trip": launches / max(trips, 1),
+             "host_readbacks": readbacks,
+             "host_readbacks_per_trip": readbacks / max(trips, 1)}
     assert stats["cpqr_batched_launches"] >= 2 * trips > 0, stats
     return res, stats
 
@@ -1883,7 +1950,7 @@ RANK_DEADLINE_S = 420
 
 def _reset_counts():
     reset_launch_counts()
-    cpqr_batched_packed_plain.cuda_calls = 0
+    cpqr_blocked.cuda_rank1["lanes"] = 0
     _device.reset_readback_count()
     _dist.reset_collective_count()
 
@@ -1915,7 +1982,7 @@ def _rank_hs65(rank, world):
             "exit_code": res.exit_code.cpu(), "x": res.x.double().cpu(),
             "f": res.f.double().cpu(),
             "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
-            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "rank1_lanes_on_card": cpqr_blocked.cuda_rank1["lanes"],
             "collectives": _dist.collective_count(),
             "host_readbacks": _device.readback_count()}
     return out
@@ -1939,7 +2006,7 @@ def _rank_hetero(rank, world):
     torch.cuda.synchronize()
     return {"seconds": time.time() - t0, "trips": run_batch.last_trips,
             "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
-            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "rank1_lanes_on_card": cpqr_blocked.cuda_rank1["lanes"],
             "collectives": _dist.collective_count(),
             "lanes": {n: {"exit_code": r.exit_code.cpu(), "x": r.x.cpu(),
                           "f": r.f.double().cpu()} for n, r in res.items()}}
@@ -2030,7 +2097,7 @@ def _graph_vs_eager(solve, keep):
             "launches": {"cpqr_batched_packed":
                          _graph.launches(cpqr_batched_packed),
                          **wy.launch_counts()},
-            "plain_calls_on_card": cpqr_batched_packed_plain.cuda_calls,
+            "rank1_lanes_on_card": cpqr_blocked.cuda_rank1["lanes"],
             "captures": stats["captures"], "replays": stats["replays"],
             "capture_seconds": stats["capture_s"],
             "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
@@ -2067,7 +2134,7 @@ def _rank_graph(rank, world):
             "exit_code": g["result"]["exit_code"],
             "x": g["result"]["x"].double(), "f": g["result"]["f"],
             "cpqr_batched_launches": g["launches"]["cpqr_batched_packed"],
-            "plain_calls_on_card": g["plain_calls_on_card"],
+            "rank1_lanes_on_card": g["rank1_lanes_on_card"],
             "collectives": g["collectives"],
             "host_readbacks": g["readbacks"]}
         _graph.clear_graph_cache()
@@ -2182,7 +2249,7 @@ def _hs65_rows(ranks, backend, fails):
             and (dtype == torch.float32 or row["max_abs_dx"] <= 1e-12)
         ok = ok and all(
             r["hs65"][name]["cpqr_batched_launches"] > 0
-            and r["hs65"][name]["plain_calls_on_card"] == 0
+            and r["hs65"][name]["rank1_lanes_on_card"] == 0
             and torch.equal(r["hs65"][name]["x"], mine["x"]) for r in ranks)
         if not ok:
             fails.append(("sharded_hs65", row))
@@ -2223,7 +2290,7 @@ def _hetero_row(gloo, hetero_out, fails):
     ok = codes_eq and match == match1 and match >= 0.99 \
         and len(set(row["trips_by_rank"])) == 1 \
         and all(r["hetero"]["cpqr_batched_launches"] > 0
-                and r["hetero"]["plain_calls_on_card"] == 0 for r in gloo)
+                and r["hetero"]["rank1_lanes_on_card"] == 0 for r in gloo)
     if not ok:
         fails.append(("sharded_hetero_suite", row))
     return row
@@ -2319,7 +2386,7 @@ def _graph_rows(nccl, fails):
         for m in ("graph_first", "graph"):
             ok = ok and both[m]["readbacks"] == 1 \
                 and both[m]["launches"][kernel] > 0 \
-                and both[m]["plain_calls_on_card"] == 0 \
+                and both[m]["rank1_lanes_on_card"] == 0 \
                 and both[m]["collectives"] > 0
             ok = ok and all(v == 0 for k, v in both[m]["launches"].items()
                             if k != kernel)
@@ -2362,6 +2429,315 @@ def multi_rank_phases(hetero_out, giant_kept):
     emit({"sharded_graph": graph_rows, "nccl_rank_seconds": t_nccl})
     assert not fails, fails
     return hs, het, gloo, graph_rows
+
+
+# ------------------------------------- batches of large problems, B1 lanes
+
+# Chained Rosenbrock n=5000, the JAX bench's cr5000 configuration: its
+# A_act^T (5000 x 4998) and J2 (9998 x 5000) exceed the resident route's
+# shared memory, so B1 takes the stream route.
+CR5000 = 5000
+STREAM_CASES = [
+    # name, kind, rows, cols, nsteps, dtype: cr5000's A_act^T (every
+    # step) and J2 (2 live columns at the end, as the solver hands it
+    # over; all 5000 step launches, those past the count return at once)
+    ("A_act^T cr5000, graded", "graded", 5000, 4998, 4998, torch.float32),
+    ("A_act^T cr5000, graded", "graded", 5000, 4998, 4998, torch.float64),
+    ("J2 cr5000", "trailing_live", 9998, 5000, 2, torch.float32),
+    ("J2 cr5000", "trailing_live", 9998, 5000, 2, torch.float64),
+]
+LANES = 8
+
+
+def _graded_matrix(rows, cols, dtype, seed):
+    """Orthonormal columns times a geometric scale from 1 down to 1e-3,
+    shuffled: every trailing norm is its column's own scale (the columns
+    are orthogonal), 0.14 % apart at 4998 columns, so the pivot order is
+    unambiguous in float32 through the last step."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(rows, cols, generator=g,
+                                       dtype=torch.float64, device=DEV))
+    scale = torch.logspace(0, -3, cols, dtype=torch.float64, device=DEV)
+    order = torch.randperm(cols, generator=g, device=DEV)
+    return (Q * scale)[:, order].to(dtype).contiguous()
+
+
+def check_b1_stream_5000():
+    """B1 at cr5000's two shapes in both dtypes through the dispatch,
+    which must take the stream route, each against its plain version
+    (``_hold_against_plain``: float64 perm equal, packed R / tails / tau
+    within 1e-9 relative, ||QR - M[:, perm]|| <= 1e-12 ||M||; float32
+    ||QR - M[:, perm]|| <= 1e-4 ||M||, perm equal on the graded
+    matrix).  The first row, A_act^T at float32, is the one the kernels
+    line reports."""
+    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    out = []
+    for name, kind, rows, cols, nsteps, dtype in STREAM_CASES:
+        assert not fits_resident(rows, cols, dtype, sms, shared), name
+        M = (_graded_matrix(rows, cols, dtype, seed=11) if kind == "graded"
+             else _case_matrix(kind, rows, cols, nsteps, dtype, seed=12))
+        got = cpqr_hopper(M, nsteps)
+        torch.cuda.synchronize()
+        assert cpqr_hopper.last_route == "stream", (name, cpqr_hopper.last_route)
+        plain = cpqr_packed_plain(M, nsteps)
+        errs = _hold_against_plain(f"{name} [stream]", kind, M, nsteps, got,
+                                   plain)
+        del got, plain
+        bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
+        out.append({
+            "case": name, "route": "stream", "shape": [rows, cols],
+            "nsteps": nsteps, "dtype": str(dtype).replace("torch.", ""),
+            "main_path": True, **errs,
+            "ms": cuda_ms(lambda: cpqr_hopper(M, nsteps), reps=3),
+            "plain_ms": cuda_ms(lambda: cpqr_packed_plain(M, nsteps), reps=1),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "streamed_bytes_over_hbm_rate_ms": stream_ms, "library_ms": None})
+        del M
+    return out
+
+
+LANE_CASES = [
+    # name, kind, rows, cols, per-lane steps: the batched cr1000 path's
+    # A_act^T (uneven counts) and J2 (2 live columns a lane)
+    ("A_act^T batched cr1000", "normal", 1000, 998,
+     [998, 998, 500, 2, 0, 998, 700, 998]),
+    ("J2 batched cr1000", "trailing_live", 1998, 1000, [2] * LANES),
+]
+
+
+def check_b1_lanes():
+    """``cpqr_hopper_lanes`` on 8 lanes of the batched cr1000 path's two
+    shapes, with per-lane step counts in device memory, against 8 single
+    ``cpqr_hopper`` calls (held against the plain version at these
+    shapes by ``check_kernels``): equal bits, in both dtypes; the lanes'
+    time against the 8 single calls'."""
+    out = []
+    for name, kind, rows, cols, steps in LANE_CASES:
+        for dtype in (torch.float32, torch.float64):
+            M = torch.stack([_case_matrix(kind, rows, cols, max(steps), dtype,
+                                          seed=20 + b) for b in range(LANES)])
+            ns = torch.tensor(steps, dtype=torch.int32, device=DEV)
+            got = cpqr_hopper_lanes(M, ns)
+            route = cpqr_hopper_lanes.last_route
+            singles = [cpqr_hopper(M[b], ns[b]) for b in range(LANES)]
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a[b], w) for b in range(LANES)
+                        for a, w in zip(got, singles[b]))
+            assert route == "resident" and equal, (name, str(dtype), route,
+                                                   equal)
+            out.append({"case": name, "dtype": str(dtype).replace("torch.", ""),
+                        "lanes": LANES, "shape": [rows, cols], "nsteps": steps,
+                        "route": route, "bits_equal_single_calls": equal,
+                        "ms": cuda_ms(lambda: cpqr_hopper_lanes(M, ns), reps=5),
+                        "single_calls_ms": cuda_ms(
+                            lambda: [cpqr_hopper(M[b], ns[b])
+                                     for b in range(LANES)], reps=5)})
+    return out
+
+
+def _cr_batch(n, B, dtype, seed=0):
+    """Chained Rosenbrock(n) from B starts x0 + 0.1 N(0, 1) drawn by
+    ``numpy.random.default_rng(seed)`` (the JAX bench's
+    ``_small_n_batched`` recipe): (functions, starts, dims, tolerances)."""
+    kw = chained_rosenbrock(n)
+    model = et.CnlsModel(**kw)
+    fns = _solve_functions(model, dtype, DEV)
+    rng = np.random.default_rng(seed)
+    x0 = np.asarray(kw["starting_point"], float)
+    starts = x0[None, :] + 0.1 * rng.normal(size=(B, n))
+    dims = et.Dims(n=n, m=model.nb_residuals, q=model.nb_eqcons,
+                   l=total_nb_constraints(model))
+    return fns, starts, dims, et.Tols.for_dtype(dtype, DEV)
+
+
+# f of a batch lane against its own single solve on the card
+LANE_F_RTOL = {torch.float32: 1e-3, torch.float64: 1e-9}
+
+
+def batched_cr1000():
+    """``solve_batched`` of Chained Rosenbrock n=1000 on 8 lanes at float32
+    and float64 through the captured graph (its first call captures; the
+    second is timed), then the eager loop on the same starts (x equal to
+    the bit) and each lane's own ``et.solve`` from its start on the card
+    (the same exit class, f within 1e-3 / 1e-9 relative).  Second
+    derivatives are off, as ``et.solve`` turns them off from n + m = 1000
+    on (the reference's rule).  Every lane's A_act^T (1000 x 998) and J2
+    (1998 x 1000) is B1 once a lane."""
+    rows = []
+    kw = chained_rosenbrock(1000)
+    for dtype in (torch.float32, torch.float64):
+        fns, starts, dims, tols = _cr_batch(1000, LANES, dtype)
+        opts = et.Options(second_derivatives=False)
+        run = lambda g: solve_batched(fns, starts, dims, opts, tols,
+                                      dtype=dtype, graph=g)
+        _, first = _counted(lambda: run(True))
+        res, timed = _counted(lambda: run(True))
+        trips = run_batch.last_trips
+        eager, eager_stats = _counted(lambda: run(False))
+        eager_trips = run_batch.last_trips
+        launches = timed["cpqr_hopper_lanes_launches"]
+        row = {"dtype": str(dtype).replace("torch.", ""), "lanes": LANES,
+               "seconds_per_batch_solve": timed["seconds"],
+               "capturing_call_seconds": first["seconds"],
+               "eager_seconds": eager_stats["seconds"], "trips": trips,
+               "eager_trips": eager_trips, "readbacks": timed["readbacks"],
+               "eager_readbacks": eager_stats["readbacks"],
+               "cpqr_hopper_lanes_launches_by_route": launches,
+               "launches_per_trip": sum(launches.values()) / max(trips, 1),
+               "cpqr_hopper_single_launches": timed["cpqr_hopper_launches"],
+               "peak_GB_capture": first["peak_GB"],
+               "peak_GB_replay": timed["peak_GB"],
+               "exit_codes": res.exit_code.tolist(),
+               "iterations": res.n_iter.tolist(),
+               "objective": res.f.double().tolist(),
+               "x_bits_equal_eager": bool(torch.equal(res.x, eager.x)),
+               "exit_codes_equal_eager": bool(torch.equal(res.exit_code,
+                                                          eager.exit_code))}
+        singles = []
+        for b in range(LANES):
+            one = et.solve(et.CnlsModel(**{**kw, "starting_point": starts[b]}),
+                           dtype=dtype)
+            f = et.sum_sq_residuals(one)
+            singles.append({
+                "status": et.status(one),
+                "iterations": len(one.model_info.iterations_detail),
+                "f_rel_diff": abs(float(res.f[b]) - f) / abs(f)})
+            assert one.status_code == \
+                et.convert_exit_code(int(res.exit_code[b])), (row, singles)
+            assert singles[-1]["f_rel_diff"] <= LANE_F_RTOL[dtype], \
+                (row, singles)
+        row["single_solves"] = singles
+        assert row["x_bits_equal_eager"] and row["exit_codes_equal_eager"], row
+        assert trips == eager_trips and timed["readbacks"] <= 2, row
+        assert launches["resident"] >= 2 * LANES * trips and \
+            launches["stream"] == 0, row
+        assert bool(torch.isfinite(res.x).all()) and \
+            res.x.shape == (LANES, 1000), row
+        rows.append(row)
+    return rows
+
+
+def solve_cr5000():
+    """``et.solve`` of Chained Rosenbrock n=5000 (the JAX bench's
+    ``bench_cr5000``) at float32 with ``matmul_precision`` "float32" and
+    "bfloat16", and at float64: one warm-up (it captures), then one timed
+    solve with the counts set to 0 just before it.  Every solve is
+    first-order stationary with max |c| <= c_tol on B1's stream route; the
+    float32 objectives lie within 1e-3 of the float64 one."""
+    kw = chained_rosenbrock(CR5000)
+    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    rows = []
+    for dtype, prec in ((torch.float64, "float32"), (torch.float32, "float32"),
+                        (torch.float32, "bfloat16")):
+        for shape in ((CR5000, CR5000 - 2), (2 * (CR5000 - 1), CR5000)):
+            assert not fits_resident(*shape, dtype, sms, shared), shape
+        et.solve(et.CnlsModel(**kw), dtype=dtype, matmul_precision=prec)
+        model = et.CnlsModel(**kw)
+        _, stats = _counted(lambda: et.solve(model, dtype=dtype,
+                                             matmul_precision=prec))
+        iters = len(model.model_info.iterations_detail)
+        c_tol = float(np.sqrt(torch.finfo(dtype).eps))
+        cmax = float(np.max(np.abs(et.equality_constraints_values(model))))
+        row = {"dtype": str(dtype).replace("torch.", ""),
+               "matmul_precision": prec, "status": et.status(model),
+               "objective": et.sum_sq_residuals(model), "max_abs_c": cmax,
+               "c_tol": c_tol, "iterations": iters,
+               "seconds_per_solve": stats["seconds"],
+               "readbacks": stats["readbacks"],
+               "cpqr_route": cpqr_hopper.last_route,
+               "cpqr_hopper_launches": stats["cpqr_hopper_launches"],
+               "peak_GB": stats["peak_GB"]}
+        assert row["status"] == "found_first_order_stationary_point", row
+        assert cmax <= c_tol and row["cpqr_route"] == "stream", row
+        assert row["cpqr_hopper_launches"] >= 2 * iters, row
+        assert np.all(np.isfinite(et.solution(model)))
+        rows.append(row)
+    f64 = rows[0]["objective"]
+    for row in rows:
+        row["objective_rel_diff_vs_float64"] = abs(row["objective"] - f64) / f64
+        assert row["objective_rel_diff_vs_float64"] <= 1e-3, rows
+    return {"solves": rows, "float64_objective": f64,
+            "cr1000_fstar_reference": CR1000_FSTAR_REFERENCE,
+            "float64_rel_diff_vs_cr1000_reference":
+                abs(f64 - CR1000_FSTAR_REFERENCE) / CR1000_FSTAR_REFERENCE}
+
+
+SMALL_N_LANES = 1024
+
+
+def small_n():
+    """The JAX bench's ``bench_small_n``: single float32 solves of Chained
+    Rosenbrock at n = 10 and n = 100 (warm: the first call captures; one
+    read-back a solve), and n = 10 on 1024 lanes in one batch (seconds a
+    solve and the converged share, which must be 1.0)."""
+    out = {}
+    dtype = torch.float32
+    for n in (10, 100):
+        kw = chained_rosenbrock(n)
+        et.solve(et.CnlsModel(**kw), dtype=dtype)
+        model = et.CnlsModel(**kw)
+        _, stats = _counted(lambda: et.solve(model, dtype=dtype))
+        out[f"n{n}"] = {"status": et.status(model),
+                        "objective": et.sum_sq_residuals(model),
+                        "iterations": len(model.model_info.iterations_detail),
+                        "seconds_per_solve": stats["seconds"],
+                        "readbacks": stats["readbacks"]}
+        assert et.status(model) == "found_first_order_stationary_point", out
+        assert stats["readbacks"] == 1, out
+    fns, starts, dims, tols = _cr_batch(10, SMALL_N_LANES, dtype)
+    run = lambda: solve_batched(fns, starts, dims, et.Options(), tols,
+                                dtype=dtype)
+    run()
+    res, stats = _counted(run)
+    share = float((res.exit_code > 0).double().mean())
+    out["n10_batched"] = {
+        "lanes": SMALL_N_LANES, "seconds_per_batch_solve": stats["seconds"],
+        "seconds_per_solve": stats["seconds"] / SMALL_N_LANES,
+        "trips": run_batch.last_trips, "readbacks": stats["readbacks"],
+        "cpqr_batched_launches": stats["cpqr_batched_launches"],
+        "converged_share": share,
+        "exit_codes": _exit_code_counts(res.exit_code.cpu().numpy())}
+    assert share == 1.0 and stats["cpqr_batched_launches"] > 0, out
+    return out
+
+
+EXAMPLES = ["torch_single_solve", "torch_batched_scenarios",
+            "torch_multistart", "torch_checkpoint_resume", "torch_giant_m",
+            "torch_mixed_suite"]
+
+
+def examples():
+    """Each torch example at its default size on the card, its output
+    captured (the last lines kept) and its outcome held."""
+    import contextlib
+    import importlib.util
+    import io
+    out = {}
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        buf = io.StringIO()
+        _graph.clear_graph_cache()
+        t0 = time.time()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main([])
+        torch.cuda.synchronize()
+        out[name] = {"seconds": time.time() - t0,
+                     "output": buf.getvalue().strip().splitlines()[-4:]}
+        if name == "torch_single_solve":
+            assert et.status(got) == "found_first_order_stationary_point"
+        elif name == "torch_batched_scenarios":
+            assert got >= 0.95, (name, got)
+        elif name == "torch_giant_m":
+            res, active = got
+            assert res.exit_code > 0 and active >= 5, (name, out[name])
+        elif name == "torch_mixed_suite":
+            assert min(got.values()) >= 0.95, (name, got)
+        # torch_multistart and torch_checkpoint_resume assert their own
+    return out
 
 
 def profile_solve(solve, kernel=None):
@@ -2465,28 +2841,31 @@ def main() -> None:
     emit({"wy_kernel_cases": wcases})
     emit({"graph_kernel_cases": graph_kernel_cases()})
     _graph.clear_graph_cache()
+    stream5000 = check_b1_stream_5000()
+    emit({"b1_stream_5000": stream5000})
+    lanes = check_b1_lanes()
+    emit({"b1_lanes": lanes})
     l2_rate = l2_copy_rate()
     if "--kernels-only" in sys.argv:
         emit({"kernel_cases": cases, "batched_kernel_cases": bcases,
               "l2_copy_GBps": l2_rate})
         return
 
-    solves = [solve_cr1000(torch.float32)]
+    large = ("lanes", "single")     # every factorization has >= 192 pivots
+    solves = phase("solve", lambda: [solve_cr1000(torch.float32),
+                                     solve_cr1000(torch.float64)], large)
     launches_main = solves[0]["cpqr_hopper_launches"]
-    solves.append(solve_cr1000(torch.float64))
-    emit({"solve": solves})
-    emit({"small": solve_small()})
-    hs65_stats = batched_hs65()
-    emit({"batched_hs65": hs65_stats})
-    ode_stats = batched_ode_fit()
-    emit({"batched_ode_fit": ode_stats})
-    emit({"batch_lanes_equal_single": batch_lanes_equal_single()})
-    giant, gm, giant_kept = solve_giant_m()
-    emit({"giant_m": giant})
+    phase("small", solve_small)
+    hs65_stats = phase("batched_hs65", batched_hs65)
+    ode_stats = phase("batched_ode_fit", batched_ode_fit)
+    phase("batch_lanes_equal_single", batch_lanes_equal_single)
+    cr1000_rows = phase("batched_cr1000", batched_cr1000, large)
+    cr5000 = phase("solve_cr5000", solve_cr5000, large)
+    phase("small_n", small_n)
+    giant, gm, giant_kept = phase("giant_m", solve_giant_m)
     _graph.clear_graph_cache()
     giant64 = phase("giant_m_float64", giant_m_float64)
     phase("device_loop", device_loop)
-    cpqr_batched_packed_plain.cuda_calls = 0
     hs_rows = phase("hs_suite", hs_suite)
     hetero_stats, hfams, hfused, hopts, hetero_out = phase("hetero_suite",
                                                           hetero_suite)
@@ -2494,9 +2873,7 @@ def main() -> None:
     newton_stats = phase("hetero_newton", hetero_newton)
     phase("hetero_lanes_equal_bucketed", hetero_lanes_equal_bucketed)
     phase("checkpoint_resume", checkpoint_resume)
-    plain_calls = cpqr_batched_packed_plain.cuda_calls
-    assert plain_calls == 0, \
-        f"{plain_calls} batched factorizations took the plain version"
+    phase("examples", examples)
     _graph.clear_graph_cache()
     sharded_hs, sharded_het, gloo, graph_rows = multi_rank_phases(
         hetero_out, giant_kept)
@@ -2521,6 +2898,7 @@ def main() -> None:
                                       dtype=torch.float32, fused=hfused),
             kernel="cpqr_batched_kernel")})
 
+    assert not RANK1_FAULTS, ("a rank-1 route ran on the card", RANK1_FAULTS)
     assert launches_main > 0, "the main path never launched cpqr_hopper"
     launches_by_path = {
         "batched_hs65": hs65_stats["cpqr_batched_launches"],
@@ -2546,7 +2924,16 @@ def main() -> None:
                 if c["main_path"] and c["dtype"] == "float32"
                 and c["nsteps"] == 998 and c["route"] == route_main)
     errs = [c["max_abs_err"] if c["max_abs_err"] is not None
-            else c["recon_rel_err"] for c in cases]
+            else c["recon_rel_err"] for c in cases + stream5000]
+    b1_by_path = {
+        "single_solve_cr1000_float32": launches_main,
+        "single_solve_cr1000_float64": solves[1]["cpqr_hopper_launches"],
+        **{f"single_solve_cr5000_{r['dtype']}_{r['matmul_precision']}":
+           r["cpqr_hopper_launches"] for r in cr5000["solves"]},
+        **{f"batched_cr1000_{r['dtype']}_lanes":
+           r["cpqr_hopper_lanes_launches_by_route"] for r in cr1000_rows}}
+    assert all(sum(r["cpqr_hopper_lanes_launches_by_route"].values()) > 0
+               for r in cr1000_rows), b1_by_path
     emit({"kernels": [{
         "name": "cpqr_hopper", "route": "cuda",
         "kernel_route": route_main,
@@ -2564,8 +2951,13 @@ def main() -> None:
         "library_ms": None,
         "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000), by "
                     "the route the main path took (kernel_route)",
+        "launches_by_path": b1_by_path,
+        "stream_5000x4998": {k: stream5000[0][k] for k in (
+            "perm_equal", "recon_rel_err", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "streamed_bytes_over_hbm_rate_ms")},
+        "lanes_8": lanes,
         "l2_copy_GBps": l2_rate,
-        "cases": cases}, _batched_kernel_entry(bcases, launches_batched,
+        "cases": cases + stream5000}, _batched_kernel_entry(bcases, launches_batched,
                                               launches_by_path),
         *_wy_kernel_entries(wcases, giant, gloo, graph_rows, giant64)]})
     print(smi, flush=True)

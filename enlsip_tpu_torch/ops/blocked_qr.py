@@ -13,9 +13,14 @@ provides the same factorization in three forms behind one dispatch
   factorizations on a CUDA device.
 
 A batch of same-shaped buffers (3-D input) gives a :class:`CPQRF` with a
-leading lane axis on every field: tiny matrices through the batched
-kernel (``ops/cpqr_batched_hopper.py``), larger ones through the batched
-rank-1 loop.  The Q applications below take either form.
+leading lane axis on every field, by the route :func:`batched_route`
+picks from the shape, dtype and device type alone: tiny matrices through
+the batched kernel (``ops/cpqr_batched_hopper.py``); large ones, as the
+JAX package's ``vmap`` of :func:`cpqr_blocked` takes them, through the
+fused Hopper kernel once a lane on a CUDA device
+(``ops/cpqr_hopper.cpqr_hopper_lanes``) and through the panel loop once
+a lane on the CPU; the rest through the batched rank-1 loop.  The Q
+applications below take either form.
 
 ``Q`` is never materialized.  Reflectors ``V, tau`` come back with
 panel-wise compact-WY ``T`` factors (``Q = prod_p (I - V_p T_p V_p^T)``),
@@ -36,7 +41,7 @@ from typing import NamedTuple
 import torch
 
 from .._device import cpu_int, resolve_device
-from .._lanes import mtv, mv
+from .._lanes import const, mtv, mv
 
 # WY panel width for T/apply blocking.
 NB = 128
@@ -139,7 +144,8 @@ def step_bound(nsteps, kmax: int):
 
 def cpqr_packed_plain(M: torch.Tensor, nsteps):
     """The rank-1 update loop on the transposed buffer, returning the
-    fused kernel's packed triple — this is the kernel's plain version.
+    fused kernel's packed triple — this is the kernel's plain version,
+    and the rank-1 route of :func:`cpqr_blocked` below 192 pivots.
 
     Returns ``(Bt, tau, perm)``: ``Bt`` (cols, rows) holds, for every
     factored column k, R above the diagonal, the Householder beta on it
@@ -191,20 +197,23 @@ def cpqr_packed_plain(M: torch.Tensor, nsteps):
 def unpack_packed(Bt: torch.Tensor, tau: torch.Tensor, perm: torch.Tensor,
                   nb: int = NB) -> CPQRF:
     """Packed triple -> :class:`CPQRF`: R = triu, V = strict lower part
-    with a unit diagonal where ``tau > 0``, per-panel T."""
-    cols, rows = Bt.shape
+    with a unit diagonal where ``tau > 0``, per-panel T.  ``Bt`` (...,
+    cols, rows), ``tau`` (..., kp) and ``perm`` (..., cols) may carry
+    leading lane axes (one packed triple a lane)."""
+    *lead, cols, rows = Bt.shape
     kmax = min(rows, cols)
     nb, kp = panel_width(kmax, nb)
-    B = Bt.t()
-    R = torch.triu(B[:kmax, :])
-    V = torch.zeros((rows, kp), dtype=Bt.dtype, device=Bt.device)
-    V[:, :kmax] = torch.tril(B[:, :kmax], -1)
+    B = Bt.transpose(-1, -2)
+    R = torch.triu(B[..., :kmax, :])
+    V = torch.zeros((*lead, rows, kp), dtype=Bt.dtype, device=Bt.device)
+    V[..., :kmax] = torch.tril(B[..., :kmax], -1)
     k = torch.arange(kmax, device=Bt.device)
-    V[k, k] = (tau[:kmax] > 0).to(Bt.dtype)
-    if tau.shape[0] != kp:     # packed tau is padded to the NB grid
-        tau = torch.cat([tau[:kmax], tau.new_zeros(kp - kmax)])
+    V[..., k, k] = (tau[..., :kmax] > 0).to(Bt.dtype)
+    if tau.shape[-1] != kp:     # packed tau is padded to the NB grid
+        tau = torch.cat([tau[..., :kmax], tau.new_zeros((*lead, kp - kmax))],
+                        dim=-1)
     return CPQRF(R=R, perm=perm, V=V, tau=tau, T=_panel_T(V, tau, nb),
-                 diag=torch.diagonal(R).clone())
+                 diag=torch.diagonal(R, dim1=-2, dim2=-1).clone())
 
 
 def _cpqr_xla(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
@@ -300,7 +309,50 @@ def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
                  diag=torch.diagonal(R).clone())
 
 
+def _cpqr_xla_panels_lanes(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
+    """:func:`_cpqr_xla_panels` of every lane of a CPU batch ``M`` (B,
+    rows, cols), stacked into one :class:`CPQRF` with NB-column panels:
+    what the JAX package's ``vmap`` of ``cpqr_blocked`` runs off the TPU
+    (downdated norms, an exact recompute at each panel start).  Lane b
+    takes its own ``nsteps[b]`` Householder steps, read on the host as
+    the 2-D loop reads its count (a CPU tensor: no read-back of the
+    card)."""
+    lanes = M.shape[0]
+    ns = None if nsteps is None else const(nsteps, M.device).expand(lanes)
+    fs = [_cpqr_xla_panels(M[b], nb, None if ns is None else ns[b])
+          for b in range(lanes)]
+    return CPQRF(*(torch.stack(field) for field in zip(*fs)))
+
+
 # --------------------------------------------------------- dispatch
+
+def batched_route(rows: int, cols: int, dtype, device_type: str) -> str:
+    """The route of a batch of (rows, cols) factorizations, a pure
+    function of shape, dtype and device type:
+
+    * ``"b2"``: inside the batched kernel's gate
+      (``cpqr_batched_hopper.in_gate``), on either device (the CPU takes
+      its plain version);
+    * ``"b1_lanes"``: kmax = min(rows, cols) >= 192 on a CUDA device, the
+      fused kernel once a lane (``cpqr_hopper.cpqr_hopper_lanes``), where
+      the TPU runs its Pallas kernel under ``vmap``;
+    * ``"panels"``: kmax >= 192 on the CPU, the panel loop a lane, as the
+      JAX package's ``vmap`` of ``cpqr_blocked`` runs off the TPU;
+    * ``"rank1"``: everything else, the batched rank-1 loop with exact
+      norms, the counterpart of the JAX package's ``_cpqr_xla`` under
+      ``vmap`` (no Pallas kernel takes these shapes)."""
+    from .cpqr_batched_hopper import in_gate
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"batched CPQR takes float32 or float64, got {dtype}")
+    if device_type not in ("cpu", "cuda"):
+        raise ValueError(f"batched CPQR runs on 'cpu' or 'cuda', got "
+                         f"{device_type!r}")
+    if in_gate(rows, cols):
+        return "b2"
+    if min(rows, cols) >= LARGE_KMAX:
+        return "b1_lanes" if device_type == "cuda" else "panels"
+    return "rank1"
+
 
 def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
                  device=None) -> CPQRF:
@@ -309,10 +361,12 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
 
     A 3-D ``M`` (B, rows, cols) is a batch of same-shaped buffers and
     gives a :class:`CPQRF` whose every field carries the leading lane
-    axis (one WY panel, nb = kmax): tiny matrices (``ops/
-    cpqr_batched_hopper.in_gate``) go to the batched kernel, which runs
-    all kmax steps; larger ones to the batched rank-1 loop with the
-    per-lane ``nsteps`` (B,) as a mask.
+    axis, by the route of :func:`batched_route`: tiny matrices go to the
+    batched kernel, which runs all kmax steps (one WY panel, nb = kmax);
+    kmax >= 192 to the fused kernel (CUDA) or the panel loop (CPU) once
+    a lane, with NB-column panels; the rest to the batched rank-1 loop
+    (one panel).  The per-lane ``nsteps`` (B,) is each lane's own step
+    count, read nowhere on the host on the card.
 
     ``nsteps`` (int or 0-d tensor) bounds the number of Householder
     steps to the number of LIVE columns: steps past it would be no-ops
@@ -327,10 +381,20 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
     M = torch.as_tensor(M).to(resolve_device(device))
     if M.ndim == 3:
         from .cpqr_batched_hopper import (cpqr_batched_packed,
-                                          cpqr_batched_packed_plain, in_gate,
+                                          cpqr_batched_packed_plain,
                                           unpack_batched)
-        if in_gate(M.shape[1], M.shape[2]):
+        route = batched_route(M.shape[1], M.shape[2], M.dtype, M.device.type)
+        if route == "b2":
             return unpack_batched(*cpqr_batched_packed(M))
+        if route == "b1_lanes":
+            from .cpqr_hopper import cpqr_hopper_lanes
+            steps = min(M.shape[1:]) if nsteps is None else nsteps
+            return unpack_packed(*cpqr_hopper_lanes(M.contiguous(), steps),
+                                 nb=nb)
+        if route == "panels":
+            return _cpqr_xla_panels_lanes(M, nb, nsteps)
+        if M.is_cuda:
+            cpqr_blocked.cuda_rank1["lanes"] += 1
         return unpack_batched(*cpqr_batched_packed_plain(M, nsteps))
     kmax = min(M.shape)
     if kmax >= LARGE_KMAX:
@@ -339,7 +403,16 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
             steps = kmax if nsteps is None else nsteps
             return unpack_packed(*cpqr_hopper(M.contiguous(), steps), nb=nb)
         return _cpqr_xla_panels(M, nb, nsteps)
+    if M.is_cuda:
+        cpqr_blocked.cuda_rank1["single"] += 1
     return _cpqr_xla(M, nb, nsteps)
+
+
+# Calls of the rank-1 routes on a CUDA tensor, the only ones in which the
+# card runs a plain PyTorch loop: "lanes" a batch (3-D), "single" one
+# matrix.  Host counts, made when a call is traced (a captured graph's
+# replays add nothing); set them to 0 before the code they hold.
+cpqr_blocked.cuda_rank1 = {"lanes": 0, "single": 0}
 
 
 # ------------------------------------------------------- Q application

@@ -28,9 +28,9 @@ Beside the kernel:
 * ``cpqr_batched_packed.launches``, a plain integer counting kernel
   launches (one per batch factorization sent to the card; a launch
   captured into a CUDA graph counts on the device at every replay, see
-  ``_graph.launches``), and
-  ``cpqr_batched_packed_plain.cuda_calls``, the plain version's calls on
-  a CUDA tensor.
+  ``_graph.launches``).  The solver's batches outside the gate run the
+  plain version as the batched rank-1 route, counted on a CUDA tensor by
+  ``ops/blocked_qr.cpqr_blocked.cuda_rank1``.
 
 Differences from the TPU kernel, all deliberate: no 512-lane blocks and
 no batch padding (lanes past B hold zero and are not written back),
@@ -138,7 +138,11 @@ def _library():
 
 def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
     """The kernel's plain version: the pivot / reflect / update chain of
-    every lane, step by step on the leading batch axis.
+    every lane, step by step on the leading batch axis, with exact norms.
+    It is also the ``"rank1"`` route of ``ops/blocked_qr.batched_route``
+    (the counterpart of the JAX package's ``_cpqr_xla`` under ``vmap``),
+    whose calls on a CUDA tensor ``cpqr_blocked.cuda_rank1["lanes"]``
+    counts.
 
     ``M`` is (B, rows, cols).  Returns ``(packed (B, rows, cols), tau
     (B, kmax), perm (B, cols) int64)``: R in packed's upper triangle, the
@@ -151,16 +155,10 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
     count, on the card it runs all kmax steps and reads nothing back).  The kernel takes no such argument — on masked
     buffers the steps past the live columns are no-ops — so this is for
     batches beyond the kernel's gate, where skipping them saves most of a
-    long loop.
-
-    ``cpqr_batched_packed_plain.cuda_calls`` counts its calls on a CUDA
-    tensor (outside the kernel's gate, or a comparison with the
-    kernel)."""
+    long loop."""
     B, rows, cols = M.shape
     kmax = min(rows, cols)
     dev, dtype = M.device, M.dtype
-    if M.is_cuda:
-        cpqr_batched_packed_plain.cuda_calls += 1
     A = M.clone(memory_format=torch.contiguous_format)
     perm = torch.arange(cols, device=dev).expand(B, cols).clone()
     taus = torch.zeros((B, kmax), dtype=dtype, device=dev)
@@ -227,9 +225,6 @@ def cpqr_batched_packed_plain(M: torch.Tensor, nsteps=None):
         A[:, :, k] = newcol
         taus[:, k] = tau
     return A, taus, perm
-
-
-cpqr_batched_packed_plain.cuda_calls = 0
 
 
 def cpqr_batched_packed(M: torch.Tensor):

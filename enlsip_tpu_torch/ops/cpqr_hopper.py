@@ -17,6 +17,9 @@ and the device's properties alone:
 * :func:`cpqr_hopper_stream`: two small launches a step on a transposed
   copy in global memory, for everything else.
 
+:func:`cpqr_hopper_lanes` takes a batch: the same route once a lane,
+each lane's step count read from its slot of a (B,) device buffer.
+
 Beside the kernel:
 
 * its plain PyTorch version, :func:`cpqr_packed_plain` (the rank-1
@@ -139,7 +142,8 @@ def _checked(name: str, M: torch.Tensor, nsteps):
         if rows * cols >= 2 ** 31:
             raise ValueError(f"{name} indexes rows and columns with int32")
         # the kernels read the count from device memory and clamp it
-        return const(nsteps, M.device, torch.int32)
+        return None if nsteps is None else const(nsteps, M.device,
+                                                 torch.int32)
     return nsteps
 
 
@@ -148,12 +152,11 @@ def _launched(route: str) -> None:
     cpqr_hopper.last_route = route
 
 
-def _resident(M: torch.Tensor, nsteps, max_blocks: int | None = None):
-    """The resident launch on a CUDA matrix, on at most ``max_blocks``
-    blocks (default: one an SM).  The result does not depend on the block
-    count."""
-    rows, cols = M.shape
-    nsteps = const(nsteps, M.device, torch.int32)
+def _resident_blocks(M: torch.Tensor, max_blocks: int | None = None) -> int:
+    """Blocks of a resident launch on ``M``'s trailing (rows, cols): at
+    most one an SM and ``max_blocks``; raises where the matrix does not
+    fit the card's shared memory on them."""
+    rows, cols = M.shape[-2:]
     sms, shared, coop = _device_limits(M.device)
     blocks = min(sms, cols, max_blocks or sms)
     need = _resident_shared_bytes(rows, cols, blocks, M.element_size())
@@ -162,27 +165,75 @@ def _resident(M: torch.Tensor, nsteps, max_blocks: int | None = None):
             f"cpqr_hopper_resident: a {rows} x {cols} {M.dtype} matrix needs "
             f"{need} bytes of shared memory a block on {blocks} blocks; the "
             f"device gives {shared} (cooperative launch: {coop})")
+    return blocks
+
+
+def _resident_into(M, Bt, tau, perm, nsteps_ptr: int, blocks: int,
+                   count) -> None:
+    """Resident launches on the current device and stream, one a matrix
+    of the lists ``M`` (contiguous (rows, cols)) -> ``Bt``, ``tau``,
+    ``perm`` (contiguous outputs), the i-th reading its step count at
+    ``nsteps_ptr + 4 i`` (int32 in device memory).  ``count()`` is called
+    before each launch."""
+    rows, cols = M[0].shape
+    dtype, dev = M[0].dtype, M[0].device
     lib = _library()
+    _, kp = panel_width(min(rows, cols))
+    # Scratch shared by the launches and freed on return is safe: the
+    # caching allocator hands a block back only to work queued later on
+    # this same stream, and the launches run one after another on it.
+    cand = torch.empty((2, blocks, rows), dtype=dtype, device=dev)
+    cval = torch.empty((2, blocks), dtype=dtype, device=dev)
+    cpos = torch.empty((2, blocks), dtype=torch.int32, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (m, bt, t, p) in enumerate(zip(M, Bt, tau, perm)):
+        count()
+        err = getattr(lib, _RESIDENT[dtype])(
+            m.data_ptr(), bt.data_ptr(), t.data_ptr(), p.data_ptr(),
+            cand.data_ptr(), cval.data_ptr(), cpos.data_ptr(),
+            counter.data_ptr(), nsteps_ptr + 4 * i, rows, cols, kp, blocks,
+            stream)
+        _raise_on(lib, err, "cpqr resident kernel launch")
+
+
+def _stream_into(Bt, tau, perm, nsteps_ptr: int, count) -> None:
+    """Stream-route launches on the current device and stream, in place on
+    each transposed copy of the list ``Bt`` (contiguous (cols, rows)) with
+    ``tau`` zeroed and ``perm`` an int32 identity, the i-th reading its
+    step count at ``nsteps_ptr + 4 i``.  ``count()`` is called before each
+    factorization's launches."""
+    cols, rows = Bt[0].shape
+    dtype, dev = Bt[0].dtype, Bt[0].device
+    lib = _library()
+    # (scratch freed on return is safe, as above)
+    nscratch = lib.cpqr_scratch_entries(cols)
+    pval = torch.empty(nscratch, dtype=dtype, device=dev)
+    pidx = torch.empty(nscratch, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for i, (bt, t, p) in enumerate(zip(Bt, tau, perm)):
+        count()
+        err = getattr(lib, _STREAM[dtype])(
+            bt.data_ptr(), t.data_ptr(), p.data_ptr(), pval.data_ptr(),
+            pidx.data_ptr(), nsteps_ptr + 4 * i, rows, cols, stream)
+        _raise_on(lib, err, "cpqr stream kernel launch")
+
+
+def _resident(M: torch.Tensor, nsteps, max_blocks: int | None = None):
+    """The resident launch on a CUDA matrix, on at most ``max_blocks``
+    blocks (default: one an SM).  The result does not depend on the block
+    count."""
+    rows, cols = M.shape
+    nsteps = const(nsteps, M.device, torch.int32)
+    blocks = _resident_blocks(M, max_blocks)
     _, kp = panel_width(min(rows, cols))
     dev = M.device
     with torch.cuda.device(dev):
         Bt = torch.empty((cols, rows), dtype=M.dtype, device=dev)
         tau = torch.empty(kp, dtype=M.dtype, device=dev)
         perm = torch.empty(cols, dtype=torch.int64, device=dev)
-        # Scratch freed on return is safe: the caching allocator hands a
-        # block back only to work queued later on this same stream.
-        cand = torch.empty((2, blocks, rows), dtype=M.dtype, device=dev)
-        cval = torch.empty((2, blocks), dtype=M.dtype, device=dev)
-        cpos = torch.empty((2, blocks), dtype=torch.int32, device=dev)
-        counter = torch.empty(1, dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream().cuda_stream
-        _launched("resident")
-        err = getattr(lib, _RESIDENT[M.dtype])(
-            M.data_ptr(), Bt.data_ptr(), tau.data_ptr(), perm.data_ptr(),
-            cand.data_ptr(), cval.data_ptr(), cpos.data_ptr(),
-            counter.data_ptr(), nsteps.data_ptr(), rows, cols, kp, blocks,
-            stream)
-    _raise_on(lib, err, "cpqr resident kernel launch")
+        _resident_into([M], [Bt], [tau], [perm], nsteps.data_ptr(), blocks,
+                       lambda: _launched("resident"))
     return Bt, tau, perm
 
 
@@ -201,23 +252,14 @@ def cpqr_hopper_stream(M: torch.Tensor, nsteps):
     if M.device.type == "cpu":
         return cpqr_packed_plain(M, nsteps)
     rows, cols = M.shape
-    lib = _library()
     _, kp = panel_width(min(rows, cols))
     with torch.cuda.device(M.device):
         # a fresh buffer: the kernel works in place on it
         Bt = M.t().clone(memory_format=torch.contiguous_format)
         tau = torch.zeros(kp, dtype=M.dtype, device=M.device)
         perm = torch.arange(cols, dtype=torch.int32, device=M.device)
-        # (scratch freed on return is safe, as above)
-        nscratch = lib.cpqr_scratch_entries(cols)
-        pval = torch.empty(nscratch, dtype=M.dtype, device=M.device)
-        pidx = torch.empty(nscratch, dtype=torch.int32, device=M.device)
-        stream = torch.cuda.current_stream().cuda_stream
-        _launched("stream")
-        err = getattr(lib, _STREAM[M.dtype])(
-            Bt.data_ptr(), tau.data_ptr(), perm.data_ptr(), pval.data_ptr(),
-            pidx.data_ptr(), nsteps.data_ptr(), rows, cols, stream)
-    _raise_on(lib, err, "cpqr stream kernel launch")
+        _stream_into([Bt], [tau], [perm], nsteps.data_ptr(),
+                     lambda: _launched("stream"))
     return Bt, tau, perm.to(torch.int64)
 
 
@@ -240,6 +282,66 @@ def cpqr_hopper(M: torch.Tensor, nsteps):
     if coop and fits_resident(M.shape[0], M.shape[1], M.dtype, sms, shared):
         return _resident(M, nsteps)
     return cpqr_hopper_stream(M, nsteps)
+
+
+def cpqr_hopper_lanes(M: torch.Tensor, nsteps):
+    """:func:`cpqr_hopper` once a lane of a batch ``M`` (B, rows, cols):
+    the batched path's factorizations with min(rows, cols) >= 192 on the
+    card (``ops/blocked_qr.batched_route``), where the TPU runs its
+    Pallas kernel under ``vmap`` (a grid axis a lane).
+
+    ``nsteps``: lane b's step count, a (B,) int tensor on the card (or an
+    int or a 0-d tensor for every lane).  Lane b's launch reads
+    ``nsteps[b]`` from device memory through a pointer into the (B,)
+    int32 buffer and clamps it, so nothing is read back and the launches
+    can be captured.  Every lane takes the route :func:`cpqr_hopper`
+    takes for one (rows, cols) matrix: one resident launch where
+    :func:`fits_resident` holds, else the stream route's launches.
+
+    Returns ``(Bt (B, cols, rows), tau (B, kp), perm (B, cols) int64)``,
+    lane b equal to the bits of ``cpqr_hopper(M[b], nsteps[b])``.  On a
+    CPU tensor: the plain version, lane by lane.
+    ``cpqr_hopper_lanes.launches`` counts one launch a lane (a stream
+    factorization's launches count once), ``stream_launches`` those by
+    the stream route, ``last_route`` names the route."""
+    if M.ndim != 3 or 0 in M.shape:
+        raise ValueError(f"cpqr_hopper_lanes takes a (B, rows, cols) batch of "
+                         f"non-empty matrices, got shape {tuple(M.shape)}")
+    _checked("cpqr_hopper_lanes", M[0], None)
+    B, rows, cols = M.shape
+    if M.device.type == "cpu":
+        ns = const(nsteps, M.device).expand(B)
+        outs = [cpqr_packed_plain(M[b], ns[b]) for b in range(B)]
+        return tuple(torch.stack(field) for field in zip(*outs))
+    if not M.is_contiguous():
+        raise ValueError("cpqr_hopper_lanes takes a contiguous batch")
+    dev = M.device
+    ns = const(nsteps, dev, torch.int32).expand(B).contiguous()
+    _, kp = panel_width(min(rows, cols))
+    sms, shared, coop = _device_limits(dev)
+    with torch.cuda.device(dev):
+        if coop and fits_resident(rows, cols, M.dtype, sms, shared):
+            Bt = torch.empty((B, cols, rows), dtype=M.dtype, device=dev)
+            tau = torch.empty((B, kp), dtype=M.dtype, device=dev)
+            perm = torch.empty((B, cols), dtype=torch.int64, device=dev)
+            _resident_into(M, Bt, tau, perm, ns.data_ptr(),
+                           _resident_blocks(M), lambda: _lane_launched("resident"))
+            return Bt, tau, perm
+        # fresh buffers: the kernels work in place on them
+        Bt = M.transpose(-1, -2).clone(memory_format=torch.contiguous_format)
+        tau = torch.zeros((B, kp), dtype=M.dtype, device=dev)
+        perm = torch.arange(cols, dtype=torch.int32,
+                            device=dev).expand(B, cols).contiguous()
+        _stream_into(Bt, tau, perm, ns.data_ptr(),
+                     lambda: _lane_launched("stream"))
+    return Bt, tau, perm.to(torch.int64)
+
+
+def _lane_launched(route: str) -> None:
+    _graph.count_launch(cpqr_hopper_lanes)
+    if route == "stream":
+        _graph.count_launch(cpqr_hopper_lanes, "stream_launches")
+    cpqr_hopper_lanes.last_route = route
 
 
 def _barrier_probe_us(kind: int, blocks: int, iters: int = 4000) -> float:
@@ -271,3 +373,7 @@ def _barrier_probe_us(kind: int, blocks: int, iters: int = 4000) -> float:
 cpqr_hopper.launches = 0
 cpqr_hopper.last_route = None
 _graph.register_counts(cpqr_hopper)
+cpqr_hopper_lanes.launches = 0
+cpqr_hopper_lanes.stream_launches = 0
+cpqr_hopper_lanes.last_route = None
+_graph.register_counts(cpqr_hopper_lanes, "launches", "stream_launches")

@@ -109,9 +109,11 @@ def chained_rosenbrock(n: int):
     def jac_residuals(x):
         nn = x.shape[0]
         k = torch.arange(nn - 1, device=x.device)
+        # the banded entries written out of place into zeros, so that
+        # torch.func.vmap can lift the closure onto a batch of lanes
         top = torch.zeros((nn - 1, nn), dtype=x.dtype, device=x.device)
-        top[k, k] = 20.0 * x[:-1]
-        top[k, k + 1] = torch.full_like(x[:-1], -10.0)
+        top = top.index_put((k, k), 20.0 * x[:-1])
+        top = top.index_put((k, k + 1), torch.full_like(x[:-1], -10.0))
         bot = torch.eye(nn - 1, nn, dtype=x.dtype, device=x.device)
         return torch.cat([top, bot])
 
@@ -130,13 +132,15 @@ def chained_rosenbrock(n: int):
         xk2 = x[2:]
         k = torch.arange(nn - 2, device=x.device)
         A = torch.zeros((nn - 2, nn), dtype=x.dtype, device=x.device)
-        A[k, k] = -(xk + 1.0) * torch.exp(xk - xk1)
-        A[k, k + 1] = (9.0 * xk1 ** 2
-                       + torch.cos(xk1 - xk2) * torch.sin(xk1 + xk2)
-                       + torch.sin(xk1 - xk2) * torch.cos(xk1 + xk2)
-                       + 4.0 + xk * torch.exp(xk - xk1))
-        A[k, k + 2] = (2.0 - torch.cos(xk1 - xk2) * torch.sin(xk1 + xk2)
-                       + torch.sin(xk1 - xk2) * torch.cos(xk1 + xk2))
+        A = A.index_put((k, k), -(xk + 1.0) * torch.exp(xk - xk1))
+        A = A.index_put((k, k + 1),
+                        9.0 * xk1 ** 2
+                        + torch.cos(xk1 - xk2) * torch.sin(xk1 + xk2)
+                        + torch.sin(xk1 - xk2) * torch.cos(xk1 + xk2)
+                        + 4.0 + xk * torch.exp(xk - xk1))
+        A = A.index_put((k, k + 2),
+                        2.0 - torch.cos(xk1 - xk2) * torch.sin(xk1 + xk2)
+                        + torch.sin(xk1 - xk2) * torch.cos(xk1 + xk2))
         return A
 
     x0 = np.where(np.arange(n) % 2 == 0, -1.2, 1.0)

@@ -24,17 +24,19 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np
 import torch
 
+from enlsip_tpu_torch._device import resolve_device
 from enlsip_tpu_torch.core.types import Options, Tols
 from enlsip_tpu_torch.parallel import (fuse_families, hs_scenario_batch,
                                        solve_suite_fused)
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--device", default=None,
-                    help="default: the CUDA device ('cpu' to run here)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the batch runs ('cpu' to run on the host)")
     ap.add_argument("--per-family", type=int, default=512)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
+    args.device = resolve_device(args.device)   # raises with no card
 
     names = ["hs14", "hs65", "hs26", "hs53", "hs79"]
     fams = hs_scenario_batch(names, per_family=args.per_family, seed=0,
@@ -44,7 +46,7 @@ def main():
     fused = fuse_families(fams, device=args.device)
 
     def tols(dtype):
-        return Tols.for_dtype(dtype)
+        return Tols.for_dtype(dtype, args.device)
 
     def solve():
         out = solve_suite_fused(fams, opts, tols, dtype=torch.float32,
@@ -58,13 +60,16 @@ def main():
 
     print(f"{total} instances across {len(names)} families in one "
           f"batch: {total / dt:.0f} solves/s")
+    shares = {}
     for name, fam in fams.items():
         f = fvals[name]
         ok = np.abs(f - fam.fstar) < 1e-3 * max(1.0, abs(fam.fstar))
+        shares[name] = float(ok.mean())
         print(f"  {name:6s} (n={fam.dims.n}, m={fam.dims.m}, "
               f"q={fam.dims.q}, l={fam.dims.l}): "
               f"{100 * ok.mean():5.1f}% at published optimum "
               f"f* = {fam.fstar:.6g}")
+    return shares
 
 
 if __name__ == "__main__":

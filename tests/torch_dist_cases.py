@@ -400,12 +400,12 @@ def card_cases(rank, world) -> dict:
     """HS65 x CARD_LANES float64 split over ranks sharing the card (gloo),
     with the batched kernel's launches on this rank."""
     from enlsip_tpu_torch.core.types import Dims, Options, Tols
-    from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
-        cpqr_batched_packed, cpqr_batched_packed_plain)
+    from enlsip_tpu_torch.ops.blocked_qr import cpqr_blocked
+    from enlsip_tpu_torch.ops.cpqr_batched_hopper import cpqr_batched_packed
     from enlsip_tpu_torch.parallel import batch_mesh, solve_batched_sharded
     mesh = batch_mesh()
     cpqr_batched_packed.launches = 0
-    cpqr_batched_packed_plain.cuda_calls = 0
+    cpqr_blocked.cuda_rank1["lanes"] = 0
     res = solve_batched_sharded(
         hs65_functions(mesh.device), hs65_starts(CARD_LANES, 4),
         Dims(*HS65_DIMS), Options(), Tols.for_dtype(torch.float64,
@@ -413,7 +413,7 @@ def card_cases(rank, world) -> dict:
         mesh=mesh, dtype=torch.float64, graph=False)
     return {"exit_code": res.exit_code.cpu(), "x": res.x.cpu(),
             "launches": cpqr_batched_packed.launches,
-            "plain_calls": cpqr_batched_packed_plain.cuda_calls}
+            "rank1_lanes": cpqr_blocked.cuda_rank1["lanes"]}
 
 
 # The row-sharded pivot loop at kmax >= 192 (the reference's sharded
