@@ -60,9 +60,10 @@ ones); the ``batched_group_sweep`` line times every G at the main paths'
 shapes and the gate's edge.
 
 Lines of the B1 phase: every ``kernel_cases`` row names its ``route``
-(each case runs through the resident and the stream route of
-``ops/cpqr_hopper.py``; one oversized case goes through the dispatch to
-the stream route); ``grid_barrier_us`` is the measured cost of one
+(each case runs through the resident route of ``ops/cpqr_hopper.py``
+against the exact-norm plain version and through its panel route against
+the panel loop's plain version; one oversized case goes through the
+dispatch to the panel route); ``grid_barrier_us`` is the measured cost of one
 grid-wide barrier (the resident kernel's own and cooperative-groups
 ``grid.sync()``) at the block counts tried; ``build`` carries what ptxas
 reported for every kernel (registers, spill).
@@ -121,13 +122,17 @@ replays, and B3-B6 rows carry ``launches_rowsharded_by_rank`` and
 Lines of the batches of large problems (``ops/blocked_qr.batched_route``:
 a batch whose matrices have min(rows, cols) >= 192 runs B1 once a lane,
 ``ops/cpqr_hopper.cpqr_hopper_lanes``) and of the JAX bench's other
-configurations: ``b1_stream_5000`` holds B1 at Chained Rosenbrock
+configurations: ``b1_panels`` holds B1 at Chained Rosenbrock
 n=5000's A_act^T (5000 x 4998, 4998 steps) and J2 (9998 x 5000, 2 live
-columns), float32 and float64, which the dispatch sends to the stream
-route, against its plain version (the tolerances of ``check_kernels``);
+columns), float32 and float64, which the dispatch sends to the panel
+route, against the panel loop's plain version (the tolerances of
+``check_kernels``; two launches and two block counts give equal bits);
 ``b1_lanes`` holds the lane wrapper on 8 lanes of the batched cr1000
-path's A_act^T (1000 x 998) and J2 (1998 x 1000, 2 steps a lane) against
-8 single calls (equal bits, both dtypes).  ``batched_cr1000`` solves Chained Rosenbrock n=1000
+path's A_act^T (1000 x 998) and J2 (1998 x 1000, 2 steps a lane), and on
+2 lanes of cr5000's J2 (the panel route), against single calls (equal
+bits, both dtypes).  The ``kernels`` line has an entry of its own for the
+panel kernel, ``cpqr_hopper_panels``, timed at cr5000's A_act^T float32,
+its launches those of the cr5000 float32 solve.  ``batched_cr1000`` solves Chained Rosenbrock n=1000
 on 8 lanes (starts x0 + 0.1 N(0, 1), numpy seed 0) at float32 and
 float64 on the captured graph: seconds a batch, trips, read-backs (<= 2),
 B1's lane launches by route, the capture's and the replay's peak memory,
@@ -135,8 +140,8 @@ x equal to the eager loop's to the bit, each lane's exit class equal to
 its own ``et.solve`` and f within 1e-3 / 1e-9 relative.
 ``solve_cr5000`` solves n=5000 at float32 (``matmul_precision``
 "float32" and "bfloat16") and float64: first-order stationary, max |c|
-<= c_tol, B1 on the stream route, float32 within 1e-3 of float64, the
-float64 objective beside the n=1000 reference value.  ``small_n``: single
+<= c_tol, B1 on the panel route, float32 within 1e-3 of float64, the
+float64 objective within 1e-12 of the n=1000 reference value.  ``small_n``: single
 float32 solves at n = 10 and 100 (one read-back each) and n = 10 on 1024
 lanes (seconds a solve; every lane converged).  ``examples`` runs each
 ``examples/torch_*.py`` at its default size.  Every ``phase`` line
@@ -175,8 +180,9 @@ import numpy as np
 import enlsip_tpu_torch as et
 from enlsip_tpu_torch import _device, _dist, _graph, _lanes
 from enlsip_tpu_torch.ops import _build
-from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain, q_apply,
-                                             unpack_packed)
+from enlsip_tpu_torch.ops.blocked_qr import (cpqr_packed_plain,
+                                             cpqr_panels_packed_plain,
+                                             q_apply, unpack_packed)
 from enlsip_tpu_torch.core.driver import Functions
 from enlsip_tpu_torch.core.driver import solve as core_solve
 from enlsip_tpu_torch.models.model import (_model_functions,
@@ -187,9 +193,10 @@ from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
 from enlsip_tpu_torch.ops.cpqr_batched_hopper import (
     cpqr_batched_packed, cpqr_batched_packed_plain, unpack_batched)
 from enlsip_tpu_torch.ops import cpqr_hopper as cpqr_mod
-from enlsip_tpu_torch.ops.cpqr_hopper import (cpqr_hopper, cpqr_hopper_lanes,
+from enlsip_tpu_torch.ops.cpqr_hopper import (b1_route, cpqr_hopper,
+                                              cpqr_hopper_lanes,
+                                              cpqr_hopper_panels,
                                               cpqr_hopper_resident,
-                                              cpqr_hopper_stream,
                                               fits_resident)
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
@@ -241,8 +248,8 @@ def reset_launch_counts() -> None:
     """Every kernel's launch count to 0: the wrappers' own integers
     (launches made now) and the device counters (launches that replays
     of captured graphs make)."""
-    cpqr_hopper.launches = 0
-    cpqr_hopper_lanes.launches = cpqr_hopper_lanes.stream_launches = 0
+    cpqr_hopper.launches = cpqr_hopper_panels.launches = 0
+    cpqr_hopper_lanes.launches = cpqr_hopper_lanes.panel_launches = 0
     cpqr_batched_packed.launches = 0
     wy.reset_launch_counts()          # the WY counts and every device slot
 
@@ -386,10 +393,14 @@ KERNEL_CASES = [
 ]
 
 
-B1_ROUTES = {"resident": cpqr_hopper_resident, "stream": cpqr_hopper_stream}
+# B1's routes, each with the plain version it is held against: exact norms
+# (the resident route, the Pallas kernel's function) and the JAX package's
+# panel loop with downdated norms (the panel route)
+B1_ROUTES = {"resident": (cpqr_hopper_resident, cpqr_packed_plain),
+             "panels": (cpqr_hopper_panels, cpqr_panels_packed_plain)}
 # Too large for the card's shared memory in either type (20 columns of
 # 3000 rows a block on 132 SMs: 240 KB at float32): the dispatch must take
-# the stream route.  Forty live columns, so that forty steps factor it whole.
+# the panel route.  Forty live columns, so that forty steps factor it whole.
 OVERSIZED_CASE = ("oversized, via dispatch", "leading_live", 3000, 2600, 40)
 
 
@@ -434,20 +445,20 @@ def _hold_against_plain(name, kind, M, nsteps, got, plain):
 
 def check_kernel_case(name, kind, rows, cols, nsteps, dtype, main_path):
     """One case through BOTH hand-written routes (a row each), each held
-    against the plain version, with equal bits of two launches; the
+    against its plain version, with equal bits of two launches; the
     dispatch must take the resident route (every case fits the card)."""
     M = _case_matrix(kind, rows, cols, nsteps, dtype, seed=rows + cols + nsteps)
     before = M.clone()
-    plain = cpqr_packed_plain(M, nsteps)
-    torch.cuda.synchronize()
     big = rows * cols >= 500_000
-    plain_ms = cuda_ms(lambda: cpqr_packed_plain(M, nsteps),
-                       reps=2 if big and nsteps > 100 else 3)
     bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
     cpqr_hopper(M, nsteps)
     assert cpqr_hopper.last_route == "resident", (name, cpqr_hopper.last_route)
     out = []
-    for route, fn in B1_ROUTES.items():
+    for route, (fn, plain_fn) in B1_ROUTES.items():
+        plain = plain_fn(M, nsteps)
+        torch.cuda.synchronize()
+        plain_ms = cuda_ms(lambda: plain_fn(M, nsteps),
+                           reps=2 if big and nsteps > 100 else 3)
         got, again = fn(M, nsteps), fn(M, nsteps)
         torch.cuda.synchronize()
         assert cpqr_hopper.last_route == route
@@ -472,28 +483,30 @@ def check_kernel_case(name, kind, rows, cols, nsteps, dtype, main_path):
 
 def check_oversized_case(dtype):
     """A matrix the gate turns away, through ``cpqr_hopper``: the dispatch
-    takes the stream route, and the resident entry point raises."""
+    takes the panel route, and the resident entry point raises."""
     name, kind, rows, cols, nsteps = OVERSIZED_CASE
-    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    sms, shared, coop = cpqr_mod._device_limits(DEV)
     assert not fits_resident(rows, cols, dtype, sms, shared)
+    assert b1_route(rows, cols, dtype, sms, shared, coop) == "panels"
     M = _case_matrix(kind, rows, cols, nsteps, dtype, seed=rows + cols)
     got = cpqr_hopper(M, nsteps)
     torch.cuda.synchronize()
-    assert cpqr_hopper.last_route == "stream", cpqr_hopper.last_route
+    assert cpqr_hopper.last_route == "panels", cpqr_hopper.last_route
     try:
         cpqr_hopper_resident(M, nsteps)
     except ValueError:
         pass
     else:
         raise AssertionError("the resident route took a matrix that does not fit")
-    plain = cpqr_packed_plain(M, nsteps)
+    plain = cpqr_panels_packed_plain(M, nsteps)
     errs = _hold_against_plain(name, kind, M, nsteps, got, plain)
     bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
-    return {"case": name, "route": "stream", "shape": [rows, cols],
+    return {"case": name, "route": "panels", "shape": [rows, cols],
             "nsteps": nsteps, "dtype": str(dtype).replace("torch.", ""),
             "main_path": False, **errs,
             "ms": cuda_ms(lambda: cpqr_hopper(M, nsteps), reps=5),
-            "plain_ms": cuda_ms(lambda: cpqr_packed_plain(M, nsteps), reps=2),
+            "plain_ms": cuda_ms(lambda: cpqr_panels_packed_plain(M, nsteps),
+                                reps=2),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "streamed_bytes_over_hbm_rate_ms": stream_ms, "library_ms": None}
 
@@ -503,10 +516,15 @@ def check_shared_memory_mirrors():
     functions); the sources size it again for the launch.  Both must say
     the same."""
     clib, wlib = cpqr_mod._library(), wy._library()
+    plib = cpqr_mod._panels_library()
     for rows, cols, blocks, itemsize in [(1000, 998, 132, 4), (1998, 1000, 132, 8),
-                                         (257, 193, 64, 8), (300, 7, 7, 4)]:
+                                         (257, 193, 64, 8), (300, 7, 7, 4),
+                                         (5000, 4998, 132, 8), (9998, 5000, 132, 4)]:
         assert clib.cpqr_resident_shared_bytes(rows, cols, blocks, itemsize) == \
             cpqr_mod._resident_shared_bytes(rows, cols, blocks, itemsize)
+        nb = cpqr_mod.panel_width(min(rows, cols))[0]
+        assert plib.cpqr_panels_shared_bytes(rows, cols, blocks, nb, itemsize) == \
+            cpqr_mod._panels_shared_bytes(rows, cols, blocks, nb, itemsize)
     # each dtype's kernel against its own layout's mirror; the float32
     # layout sized at float64 against the gate's admission rule
     for n, k, dtype in [(100, 50, torch.float32), (100, 50, torch.float64),
@@ -540,15 +558,15 @@ def resident_by_blocks():
     M = _case_matrix(kind, rows, cols, nsteps, torch.float32,
                      seed=rows + cols + nsteps)
     sms = cpqr_mod._device_limits(DEV)[0]
-    ref = cpqr_mod._resident(M, nsteps)
+    ref = cpqr_mod._launch("resident", M, nsteps)
     out = {}
     for blocks in sorted({sms, 64, 32}, reverse=True):
-        got = cpqr_mod._resident(M, nsteps, blocks)
+        got = cpqr_mod._launch("resident", M, nsteps, blocks)
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, ref)), \
             f"resident kernel: {blocks} blocks give other bits than {sms}"
-        out[str(blocks)] = cuda_ms(lambda: cpqr_mod._resident(M, nsteps, blocks),
-                                   reps=10)
+        out[str(blocks)] = cuda_ms(
+            lambda: cpqr_mod._launch("resident", M, nsteps, blocks), reps=10)
     return out
 
 
@@ -1270,7 +1288,7 @@ def graph_kernel_cases():
     for dtype in (torch.float32, torch.float64):
         dt = str(dtype).replace("torch.", "")
         M = _case_matrix("normal", 1000, 998, 998, dtype, seed=7)
-        for route, fn in B1_ROUTES.items():
+        for route, (fn, _) in B1_ROUTES.items():
             for steps in (998, 2):
                 case(f"B1 {route} 1000x998 {steps} steps {dt}", fn,
                      (M, torch.full((), steps, dtype=torch.int32, device=DEV)))
@@ -1453,8 +1471,8 @@ def _batch_row(name, solve, profile):
 
 def _lane_launches():
     total = _graph.launches(cpqr_hopper_lanes)
-    stream = _graph.launches(cpqr_hopper_lanes, "stream_launches")
-    return {"resident": total - stream, "stream": stream}
+    panels = _graph.launches(cpqr_hopper_lanes, "panel_launches")
+    return {"resident": total - panels, "panels": panels}
 
 
 def _counted(fn, reset_peak=True):
@@ -1473,6 +1491,8 @@ def _counted(fn, reset_peak=True):
     return res, {"seconds": time.time() - t0,
                  "readbacks": _device.readback_count(),
                  "cpqr_hopper_launches": _graph.launches(cpqr_hopper),
+                 "cpqr_hopper_panels_launches":
+                     _graph.launches(cpqr_hopper_panels),
                  "cpqr_hopper_lanes_launches": _lane_launches(),
                  "cpqr_batched_launches": _graph.launches(cpqr_batched_packed),
                  "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
@@ -2435,12 +2455,13 @@ def multi_rank_phases(hetero_out, giant_kept):
 
 # Chained Rosenbrock n=5000, the JAX bench's cr5000 configuration: its
 # A_act^T (5000 x 4998) and J2 (9998 x 5000) exceed the resident route's
-# shared memory, so B1 takes the stream route.
+# shared memory, so B1 takes the panel route (the JAX package's
+# _cpqr_xla_panels, as the TPU takes it above its VMEM gate).
 CR5000 = 5000
-STREAM_CASES = [
+PANEL_CASES = [
     # name, kind, rows, cols, nsteps, dtype: cr5000's A_act^T (every
     # step) and J2 (2 live columns at the end, as the solver hands it
-    # over; all 5000 step launches, those past the count return at once)
+    # over; the panels past the count are skipped)
     ("A_act^T cr5000, graded", "graded", 5000, 4998, 4998, torch.float32),
     ("A_act^T cr5000, graded", "graded", 5000, 4998, 4998, torch.float64),
     ("J2 cr5000", "trailing_live", 9998, 5000, 2, torch.float32),
@@ -2462,34 +2483,52 @@ def _graded_matrix(rows, cols, dtype, seed):
     return (Q * scale)[:, order].to(dtype).contiguous()
 
 
-def check_b1_stream_5000():
+def check_b1_panels():
     """B1 at cr5000's two shapes in both dtypes through the dispatch,
-    which must take the stream route, each against its plain version
-    (``_hold_against_plain``: float64 perm equal, packed R / tails / tau
-    within 1e-9 relative, ||QR - M[:, perm]|| <= 1e-12 ||M||; float32
-    ||QR - M[:, perm]|| <= 1e-4 ||M||, perm equal on the graded
-    matrix).  The first row, A_act^T at float32, is the one the kernels
-    line reports."""
-    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    which must take the panel route, each against the panel loop's plain
+    version (``_hold_against_plain``: float64 perm equal, packed R / tails
+    / tau within 1e-9 relative, ||QR - M[:, perm]|| <= 1e-12 ||M||;
+    float32 ||QR - M[:, perm]|| <= 1e-4 ||M||, perm equal on the graded
+    matrix), with equal bits of two launches and of a launch on half the
+    blocks; each row's ``launches`` is what one call counted.  The first
+    row, A_act^T at float32, is the one the kernels line reports."""
+    sms, shared, coop = cpqr_mod._device_limits(DEV)
     out = []
-    for name, kind, rows, cols, nsteps, dtype in STREAM_CASES:
-        assert not fits_resident(rows, cols, dtype, sms, shared), name
+    for name, kind, rows, cols, nsteps, dtype in PANEL_CASES:
+        assert b1_route(rows, cols, dtype, sms, shared, coop) == "panels", name
         M = (_graded_matrix(rows, cols, dtype, seed=11) if kind == "graded"
              else _case_matrix(kind, rows, cols, nsteps, dtype, seed=12))
+        before = M.clone()
+        torch.cuda.synchronize()
+        reset_launch_counts()
         got = cpqr_hopper(M, nsteps)
         torch.cuda.synchronize()
-        assert cpqr_hopper.last_route == "stream", (name, cpqr_hopper.last_route)
-        plain = cpqr_packed_plain(M, nsteps)
-        errs = _hold_against_plain(f"{name} [stream]", kind, M, nsteps, got,
+        launches = {"cpqr_hopper": _graph.launches(cpqr_hopper),
+                    "cpqr_hopper_panels": _graph.launches(cpqr_hopper_panels)}
+        assert cpqr_hopper.last_route == "panels", (name, cpqr_hopper.last_route)
+        assert launches == {"cpqr_hopper": 1, "cpqr_hopper_panels": 1}, launches
+        again = cpqr_hopper(M, nsteps)
+        half = cpqr_mod._launch("panels", M, nsteps, max(1, sms // 2))
+        torch.cuda.synchronize()
+        assert torch.equal(M, before), f"{name}: the input was modified"
+        bits_equal = all(torch.equal(a, b) for a, b in zip(got, again))
+        blocks_equal = all(torch.equal(a, b) for a, b in zip(got, half))
+        assert bits_equal and blocks_equal, (name, bits_equal, blocks_equal)
+        del again, half
+        plain = cpqr_panels_packed_plain(M, nsteps)
+        errs = _hold_against_plain(f"{name} [panels]", kind, M, nsteps, got,
                                    plain)
         del got, plain
         bound_ms, bound_by, stream_ms = cpqr_bound(rows, cols, nsteps, dtype)
         out.append({
-            "case": name, "route": "stream", "shape": [rows, cols],
+            "case": name, "route": "panels", "shape": [rows, cols],
             "nsteps": nsteps, "dtype": str(dtype).replace("torch.", ""),
-            "main_path": True, **errs,
+            "main_path": True, "bits_equal": bits_equal,
+            "bits_equal_half_the_blocks": blocks_equal, "launches": launches,
+            **errs,
             "ms": cuda_ms(lambda: cpqr_hopper(M, nsteps), reps=3),
-            "plain_ms": cuda_ms(lambda: cpqr_packed_plain(M, nsteps), reps=1),
+            "plain_ms": cuda_ms(lambda: cpqr_panels_packed_plain(M, nsteps),
+                                reps=1),
             "bound_ms": bound_ms, "bound_by": bound_by,
             "streamed_bytes_over_hbm_rate_ms": stream_ms, "library_ms": None})
         del M
@@ -2497,41 +2536,47 @@ def check_b1_stream_5000():
 
 
 LANE_CASES = [
-    # name, kind, rows, cols, per-lane steps: the batched cr1000 path's
-    # A_act^T (uneven counts) and J2 (2 live columns a lane)
+    # name, kind, rows, cols, per-lane steps, route: the batched cr1000
+    # path's A_act^T (uneven counts) and J2 (2 live columns a lane), and
+    # lanes too large for shared memory (cr5000's J2)
     ("A_act^T batched cr1000", "normal", 1000, 998,
-     [998, 998, 500, 2, 0, 998, 700, 998]),
-    ("J2 batched cr1000", "trailing_live", 1998, 1000, [2] * LANES),
+     [998, 998, 500, 2, 0, 998, 700, 998], "resident"),
+    ("J2 batched cr1000", "trailing_live", 1998, 1000, [2] * LANES,
+     "resident"),
+    ("J2 cr5000 lanes", "trailing_live", 9998, 5000, [2, 1], "panels"),
 ]
 
 
 def check_b1_lanes():
-    """``cpqr_hopper_lanes`` on 8 lanes of the batched cr1000 path's two
-    shapes, with per-lane step counts in device memory, against 8 single
-    ``cpqr_hopper`` calls (held against the plain version at these
-    shapes by ``check_kernels``): equal bits, in both dtypes; the lanes'
-    time against the 8 single calls'."""
+    """``cpqr_hopper_lanes`` on the lanes of the batched cr1000 path's two
+    shapes (8 lanes) and of cr5000's J2 (2 lanes, the panel route), with
+    per-lane step counts in device memory, against single ``cpqr_hopper``
+    calls (held against the plain versions at these shapes by
+    ``check_kernels`` and ``check_b1_panels``): equal bits, in both
+    dtypes; the lanes' time against the single calls'."""
     out = []
-    for name, kind, rows, cols, steps in LANE_CASES:
+    for name, kind, rows, cols, steps, want_route in LANE_CASES:
+        lanes = len(steps)
         for dtype in (torch.float32, torch.float64):
             M = torch.stack([_case_matrix(kind, rows, cols, max(steps), dtype,
-                                          seed=20 + b) for b in range(LANES)])
+                                          seed=20 + b) for b in range(lanes)])
             ns = torch.tensor(steps, dtype=torch.int32, device=DEV)
             got = cpqr_hopper_lanes(M, ns)
             route = cpqr_hopper_lanes.last_route
-            singles = [cpqr_hopper(M[b], ns[b]) for b in range(LANES)]
+            singles = [cpqr_hopper(M[b], ns[b]) for b in range(lanes)]
             torch.cuda.synchronize()
-            equal = all(torch.equal(a[b], w) for b in range(LANES)
+            equal = all(torch.equal(a[b], w) for b in range(lanes)
                         for a, w in zip(got, singles[b]))
-            assert route == "resident" and equal, (name, str(dtype), route,
+            assert route == want_route and equal, (name, str(dtype), route,
                                                    equal)
             out.append({"case": name, "dtype": str(dtype).replace("torch.", ""),
-                        "lanes": LANES, "shape": [rows, cols], "nsteps": steps,
+                        "lanes": lanes, "shape": [rows, cols], "nsteps": steps,
                         "route": route, "bits_equal_single_calls": equal,
                         "ms": cuda_ms(lambda: cpqr_hopper_lanes(M, ns), reps=5),
                         "single_calls_ms": cuda_ms(
                             lambda: [cpqr_hopper(M[b], ns[b])
-                                     for b in range(LANES)], reps=5)})
+                                     for b in range(lanes)], reps=5)})
+            del M, got, singles
     return out
 
 
@@ -2610,7 +2655,7 @@ def batched_cr1000():
         assert row["x_bits_equal_eager"] and row["exit_codes_equal_eager"], row
         assert trips == eager_trips and timed["readbacks"] <= 2, row
         assert launches["resident"] >= 2 * LANES * trips and \
-            launches["stream"] == 0, row
+            launches["panels"] == 0, row
         assert bool(torch.isfinite(res.x).all()) and \
             res.x.shape == (LANES, 1000), row
         rows.append(row)
@@ -2622,15 +2667,17 @@ def solve_cr5000():
     ``bench_cr5000``) at float32 with ``matmul_precision`` "float32" and
     "bfloat16", and at float64: one warm-up (it captures), then one timed
     solve with the counts set to 0 just before it.  Every solve is
-    first-order stationary with max |c| <= c_tol on B1's stream route; the
-    float32 objectives lie within 1e-3 of the float64 one."""
+    first-order stationary with max |c| <= c_tol, one read-back, every B1
+    factorization on the panel route; the float64 objective lies within
+    1e-12 of the n=1000 reference value (f* does not depend on n), the
+    float32 ones within 1e-3 of it."""
     kw = chained_rosenbrock(CR5000)
-    sms, shared, _ = cpqr_mod._device_limits(DEV)
+    sms, shared, coop = cpqr_mod._device_limits(DEV)
     rows = []
     for dtype, prec in ((torch.float64, "float32"), (torch.float32, "float32"),
                         (torch.float32, "bfloat16")):
         for shape in ((CR5000, CR5000 - 2), (2 * (CR5000 - 1), CR5000)):
-            assert not fits_resident(*shape, dtype, sms, shared), shape
+            assert b1_route(*shape, dtype, sms, shared, coop) == "panels", shape
         et.solve(et.CnlsModel(**kw), dtype=dtype, matmul_precision=prec)
         model = et.CnlsModel(**kw)
         _, stats = _counted(lambda: et.solve(model, dtype=dtype,
@@ -2646,16 +2693,22 @@ def solve_cr5000():
                "readbacks": stats["readbacks"],
                "cpqr_route": cpqr_hopper.last_route,
                "cpqr_hopper_launches": stats["cpqr_hopper_launches"],
+               "cpqr_hopper_panels_launches":
+                   stats["cpqr_hopper_panels_launches"],
                "peak_GB": stats["peak_GB"]}
         assert row["status"] == "found_first_order_stationary_point", row
-        assert cmax <= c_tol and row["cpqr_route"] == "stream", row
+        assert cmax <= c_tol and row["cpqr_route"] == "panels", row
+        assert row["readbacks"] == 1, row
         assert row["cpqr_hopper_launches"] >= 2 * iters, row
+        assert row["cpqr_hopper_panels_launches"] == \
+            row["cpqr_hopper_launches"], row
         assert np.all(np.isfinite(et.solution(model)))
         rows.append(row)
     f64 = rows[0]["objective"]
     for row in rows:
         row["objective_rel_diff_vs_float64"] = abs(row["objective"] - f64) / f64
         assert row["objective_rel_diff_vs_float64"] <= 1e-3, rows
+    assert abs(f64 - CR1000_FSTAR_REFERENCE) <= 1e-12 * CR1000_FSTAR_REFERENCE, f64
     return {"solves": rows, "float64_objective": f64,
             "cr1000_fstar_reference": CR1000_FSTAR_REFERENCE,
             "float64_rel_diff_vs_cr1000_reference":
@@ -2779,6 +2832,43 @@ def profile_solve(solve, kernel=None):
                             for k, us, n in rows[:12]]}
 
 
+def _panels_kernel_entry(pcases, cases, cr5000, lanes):
+    """The ``kernels`` entry of B1's panel route: timed at cr5000's A_act^T
+    float32 (``b1_panels``' first row), its launches those of the cr5000
+    float32 solve (``solve_cr5000``, counts set to 0 just before it)."""
+    head = pcases[0]
+    mine = pcases + [c for c in cases if c["route"] == "panels"]
+    errs = [c["max_abs_err"] if c["max_abs_err"] is not None
+            else c["recon_rel_err"] for c in mine]
+    by_path = {f"single_solve_cr5000_{r['dtype']}_{r['matmul_precision']}":
+               r["cpqr_hopper_panels_launches"] for r in cr5000["solves"]}
+    assert all(v > 0 for v in by_path.values()), \
+        ("the cr5000 path never launched the panel kernel", by_path)
+    return {
+        "name": "cpqr_hopper_panels", "route": "cuda",
+        "source": "enlsip_tpu_torch/csrc/cpqr_panels.cu",
+        "replaces": "enlsip_tpu/ops/pallas_qr2.py:34",
+        "computes": "enlsip_tpu/ops/blocked_qr.py:192 (_cpqr_xla_panels, what "
+                    "the JAX package runs where the Pallas kernel's VMEM gate "
+                    "turns a matrix away)",
+        "launches": by_path["single_solve_cr5000_float32_float32"],
+        "launches_by_path": by_path,
+        "max_abs_err": max(errs),
+        "tolerance": "against the panel loop's plain version; float64: perm "
+                     "equal, packed R/tails/tau within 1e-9 relative, "
+                     "||QR - M[:,perm]|| <= 1e-12 ||M||; float32: ||QR - "
+                     "M[:,perm]|| <= 1e-4 ||M||, perm equal on the graded "
+                     "matrix; two launches and two block counts give equal "
+                     "bits",
+        "ms": head["ms"], "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+        "library_ms": None,
+        "timed_at": "5000x4998 float32, nsteps 4998 (A_act^T of cr5000, "
+                    "graded)",
+        "lanes": [row for row in lanes if row["route"] == "panels"],
+        "cases": pcases}
+
+
 def _batched_kernel_entry(bcases, launches, launches_by_path):
     head = next(c for c in bcases if c["case"] == "J2 ode_fit"
                 and c["dtype"] == "float32")
@@ -2841,8 +2931,8 @@ def main() -> None:
     emit({"wy_kernel_cases": wcases})
     emit({"graph_kernel_cases": graph_kernel_cases()})
     _graph.clear_graph_cache()
-    stream5000 = check_b1_stream_5000()
-    emit({"b1_stream_5000": stream5000})
+    panels5000 = check_b1_panels()
+    emit({"b1_panels": panels5000})
     lanes = check_b1_lanes()
     emit({"b1_lanes": lanes})
     l2_rate = l2_copy_rate()
@@ -2924,7 +3014,7 @@ def main() -> None:
                 if c["main_path"] and c["dtype"] == "float32"
                 and c["nsteps"] == 998 and c["route"] == route_main)
     errs = [c["max_abs_err"] if c["max_abs_err"] is not None
-            else c["recon_rel_err"] for c in cases + stream5000]
+            else c["recon_rel_err"] for c in cases + panels5000]
     b1_by_path = {
         "single_solve_cr1000_float32": launches_main,
         "single_solve_cr1000_float64": solves[1]["cpqr_hopper_launches"],
@@ -2952,12 +3042,14 @@ def main() -> None:
         "timed_at": "1000x998 float32, nsteps 998 (A_act^T of cr1000), by "
                     "the route the main path took (kernel_route)",
         "launches_by_path": b1_by_path,
-        "stream_5000x4998": {k: stream5000[0][k] for k in (
+        "panels_5000x4998": {k: panels5000[0][k] for k in (
             "perm_equal", "recon_rel_err", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "streamed_bytes_over_hbm_rate_ms")},
         "lanes_8": lanes,
         "l2_copy_GBps": l2_rate,
-        "cases": cases + stream5000}, _batched_kernel_entry(bcases, launches_batched,
+        "cases": cases + panels5000}, _panels_kernel_entry(
+            panels5000, cases, cr5000, lanes),
+        _batched_kernel_entry(bcases, launches_batched,
                                               launches_by_path),
         *_wy_kernel_entries(wcases, giant, gloo, graph_rows, giant64)]})
     print(smi, flush=True)

@@ -15,7 +15,12 @@
 // reflector -> update, paid min(rows, cols) times in sequence.  The
 // design question is what one such card-wide round trip costs.
 //
-// Two routes, chosen by the wrapper from shape and device properties.
+// Two routes, chosen by the wrapper from shape and device properties
+// (ops/cpqr_hopper.py::b1_route): this file's resident route, the
+// counterpart of the TPU kernel, for a matrix that fits the card's shared
+// memory; csrc/cpqr_panels.cu, the JAX package's geqp3 panel loop with
+// downdated norms, for one that does not, as the TPU takes that loop above
+// its VMEM gate.
 //
 // RESIDENT (cpqr_resident): what the TPU kernel really kept was the
 // whole matrix in fast memory for all steps.  One block cannot on this
@@ -44,19 +49,9 @@
 //   * Pivot ties go to the lowest current POSITION (through the inverse
 //     map), as the first maximum of the swapped matrix would.
 //
-// STREAM (update_norms + pivot_reflect): for a matrix that does not fit
-// the card's shared memory.  The matrix is held transposed in global
-// memory (L2 at a few MB) and every step is two small launches enqueued
-// back to back on one stream; stream order supplies the dependency.
-//   pivot_reflect (one block): reduces the per-block pivot candidates,
-//     swaps columns k and piv, forms the reflector and packs column k.
-//   update_norms (one warp a column): v^T b_j, the rank-1 update of
-//     column j and, fused into the same sweep, the squared norm of its
-//     rows > k for the next pivot search, then a per-block maximum.
-//
-// Determinism, both routes.  No floating-point atomics.  A column's dot
-// product and norm are summed by one warp in a fixed order (lane-strided
-// partial sums, then a butterfly), whichever block owns the column and
+// Determinism.  No floating-point atomics.  A column's dot product and
+// norm are summed by one warp in a fixed order (lane-strided partial
+// sums, then a butterfly), whichever block owns the column and
 // however many blocks the card gave; pivot reductions compare (value,
 // position) pairs and prefer the lower position.  Two launches give the
 // same bits, and so do two block counts.
@@ -65,49 +60,17 @@
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "cpqr_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kWarpsPerBlock = 4;     // columns per update_norms block
-constexpr int kPivotThreads = 512;    // threads of the pivot_reflect block
+using namespace cpqr_common;
+
 constexpr int kResThreads = 512;      // threads of a cpqr_resident block
 
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Does candidate (v2, i2) beat (v1, i1)?  Larger value, then lower index.
-template <typename T>
-__device__ __forceinline__ bool beats(T v2, int i2, T v1, int i1) {
-  return v2 > v1 || (v2 == v1 && i2 < i1);
-}
-
 // ------------------------------------------------------ resident route
-
-__device__ __forceinline__ int load_acquire(const int* p) {
-  int v;
-  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
-  return v;
-}
-
-// Grid-wide barrier on a counter that only grows, split in two.  One
-// thread of each block arrives after a __syncthreads() that follows the
-// block's last global write (the fence is cumulative over what the
-// barrier ordered before it); the same thread later waits for the n-th
-// round's target n * gridDim.x, and a second __syncthreads() releases
-// the block.  Needs every block co-resident: a cooperative launch.
-__device__ __forceinline__ void grid_arrive(int* counter) {
-  __threadfence();
-  atomicAdd(counter, 1);
-}
-
-__device__ __forceinline__ void grid_wait(const int* counter, int target) {
-  while (load_acquire(counter) < target) {
-  }
-}
 
 // Shared memory of a resident block: its columns, the reflector, the
 // norms of its columns and the two position <-> column maps.
@@ -116,17 +79,6 @@ __host__ __device__ inline size_t resident_shared_bytes(int rows, int cols,
                                                         size_t itemsize) {
   const size_t nloc = (size_t)(cols + blocks - 1) / blocks;
   return (nloc * rows + rows + nloc) * itemsize + 2 * (size_t)cols * sizeof(int);
-}
-
-// The step count of a launch: *nsteps_p clamped to [0, min(rows, cols)].
-// It lives in device memory so that a count the solver computed on the
-// card is never read back, and a captured graph replays with the count of
-// the replay.
-__device__ __forceinline__ int step_count(const int* nsteps_p, int rows,
-                                          int cols) {
-  const int kmax = rows < cols ? rows : cols;
-  const int n = *nsteps_p;
-  return n < 0 ? 0 : (n > kmax ? kmax : n);
 }
 
 template <typename T>
@@ -346,16 +298,8 @@ int resident_run(const T* M, T* out, T* tauv, long long* perm, T* cand, T* cval,
   if (blocks < 1 || blocks > cols) return (int)cudaErrorInvalidValue;
   const size_t smem = resident_shared_bytes(rows, cols, blocks, sizeof(T));
   auto kernel = cpqr_resident<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = cooperative_fit(kernel, kResThreads, smem, blocks);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kResThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm * sms < blocks) return (int)cudaErrorCooperativeLaunchTooLarge;
   // The barrier counter only grows within a launch; zeroing it in stream
   // order before every launch (a memset node when the launch is
   // captured) gives every replay of a graph a clean start.
@@ -389,194 +333,14 @@ barrier_probe(int* counter, int iters) {
   }
 }
 
-// ------------------------------------------------------- stream route
-
-// Step k's update of every column j > k by the reflector stored in
-// column k, plus the squared norms of rows > k of the updated columns and
-// each block's best (norm, column).  k = -1: no update, norms of whole
-// columns (the pass before step 0).
-template <typename T>
-__global__ void update_norms(T* bt, const T* tauv, T* pval, int* pidx,
-                             const int* nsteps_p, int rows, int cols, int k) {
-  // a step past the count is a no-op (the launch sequence is fixed)
-  if (k >= step_count(nsteps_p, rows, cols)) return;
-  __shared__ T sval[kWarpsPerBlock];
-  __shared__ int sidx[kWarpsPerBlock];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int j = k + 1 + blockIdx.x * kWarpsPerBlock + warp;
-  T nrm = T(-1);
-  int idx = INT_MAX;
-  if (j < cols) {
-    T* col = bt + (size_t)j * rows;
-    T acc = T(0);
-    const T tau = (k >= 0) ? tauv[k] : T(0);
-    if (tau != T(0)) {
-      // v = (0, ..., 0, 1, tail): the tail sits below the diagonal of
-      // column k.  Lane 0 alone touches element k of the column.
-      const T* v = bt + (size_t)k * rows;
-      T dot = (lane == 0) ? col[k] : T(0);
-      for (int i = k + 1 + lane; i < rows; i += 32) dot += v[i] * col[i];
-      const T s = tau * warp_sum(dot);
-      for (int i = k + 1 + lane; i < rows; i += 32) {
-        const T x = col[i] - s * v[i];
-        col[i] = x;
-        acc += x * x;
-      }
-      if (lane == 0) col[k] -= s;
-    } else {
-      for (int i = k + 1 + lane; i < rows; i += 32) acc += col[i] * col[i];
-    }
-    nrm = warp_sum(acc);
-    idx = j;
-  }
-  if (lane == 0) {
-    sval[warp] = nrm;
-    sidx[warp] = idx;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    T bv = sval[0];
-    int bi = sidx[0];
-    for (int w = 1; w < kWarpsPerBlock; ++w)
-      if (beats(sval[w], sidx[w], bv, bi)) {
-        bv = sval[w];
-        bi = sidx[w];
-      }
-    pval[blockIdx.x] = bv;
-    pidx[blockIdx.x] = bi;
-  }
-}
-
-// Step k's pivot choice, column swap, reflector and packed column.
-template <typename T>
-__global__ void pivot_reflect(T* bt, T* tauv, int* perm, const T* pval,
-                              const int* pidx, const int* nsteps_p, int npart,
-                              int rows, int cols, int k) {
-  if (k >= step_count(nsteps_p, rows, cols)) return;
-  __shared__ T sval[kPivotThreads];
-  __shared__ int sidx[kPivotThreads];
-  __shared__ T sdenom;
-  const int tid = threadIdx.x;
-
-  // ---- pivot: first maximum over the per-block candidates -------------
-  T bv = T(-1);
-  int bi = INT_MAX;
-  for (int p = tid; p < npart; p += kPivotThreads)
-    if (beats(pval[p], pidx[p], bv, bi)) {
-      bv = pval[p];
-      bi = pidx[p];
-    }
-  sval[tid] = bv;
-  sidx[tid] = bi;
-  __syncthreads();
-  for (int o = kPivotThreads / 2; o > 0; o >>= 1) {
-    if (tid < o && beats(sval[tid + o], sidx[tid + o], sval[tid], sidx[tid])) {
-      sval[tid] = sval[tid + o];
-      sidx[tid] = sidx[tid + o];
-    }
-    __syncthreads();
-  }
-  int piv = sidx[0];
-  if (piv < k || piv >= cols) piv = k;   // no finite candidate: stay put
-  __syncthreads();
-
-  // ---- swap columns k <-> piv (whole columns, R part included) --------
-  T* ck = bt + (size_t)k * rows;
-  if (piv != k) {
-    T* cp = bt + (size_t)piv * rows;
-    for (int i = tid; i < rows; i += kPivotThreads) {
-      const T a = ck[i];
-      ck[i] = cp[i];
-      cp[i] = a;
-    }
-    if (tid == 0) {
-      const int a = perm[k];
-      perm[k] = perm[piv];
-      perm[piv] = a;
-    }
-  }
-  __syncthreads();
-
-  // ---- Householder reflector of rows >= k of column k -----------------
-  T acc = T(0);
-  for (int i = k + tid; i < rows; i += kPivotThreads) acc += ck[i] * ck[i];
-  sval[tid] = acc;
-  __syncthreads();
-  for (int o = kPivotThreads / 2; o > 0; o >>= 1) {
-    if (tid < o) sval[tid] += sval[tid + o];
-    __syncthreads();
-  }
-  if (tid == 0) {
-    const T alpha = ck[k];
-    const T signorm = sqrt(sval[0]);
-    const T beta = (alpha >= T(0)) ? -signorm : signorm;
-    const T denom = alpha - beta;
-    const bool safe = fabs(denom) > T(0);
-    // A zero tail gives tau = 0, v = 0 and keeps alpha on the diagonal.
-    tauv[k] = (safe && beta != T(0)) ? (beta - alpha) / beta : T(0);
-    ck[k] = safe ? beta : alpha;
-    sdenom = safe ? denom : T(1);
-  }
-  __syncthreads();
-  const T denom = sdenom;
-  for (int i = k + 1 + tid; i < rows; i += kPivotThreads) ck[i] = ck[i] / denom;
-}
-
-// The host cannot know the count (it is in device memory), so the launch
-// sequence covers every possible step and the kernels of a step past the
-// count return at once.
-template <typename T>
-int cpqr_run(T* bt, T* tauv, int* perm, T* pval, int* pidx, const int* nsteps,
-             int rows, int cols, cudaStream_t stream) {
-  const int kmax = rows < cols ? rows : cols;
-  if (kmax > 0) {
-    int nblk = (cols + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    update_norms<T><<<nblk, kWarpsPerBlock * 32, 0, stream>>>(
-        bt, tauv, pval, pidx, nsteps, rows, cols, -1);
-    int npart = nblk;
-    for (int k = 0; k < kmax; ++k) {
-      pivot_reflect<T><<<1, kPivotThreads, 0, stream>>>(
-          bt, tauv, perm, pval, pidx, nsteps, npart, rows, cols, k);
-      const int ntrail = cols - k - 1;
-      if (ntrail > 0) {
-        nblk = (ntrail + kWarpsPerBlock - 1) / kWarpsPerBlock;
-        update_norms<T><<<nblk, kWarpsPerBlock * 32, 0, stream>>>(
-            bt, tauv, pval, pidx, nsteps, rows, cols, k);
-        npart = nblk;
-      }
-    }
-  }
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // C interface.  Every function launches on `stream`, allocates nothing,
 // does not synchronise, and returns the first CUDA error (0 = success).
 //
-// Both routes take the step count as a pointer to one device int32
-// (clamped to [0, min(rows, cols)] on the device).
+// The step count is a pointer to one device int32 (clamped to
+// [0, min(rows, cols)] on the device).
 //
-// Stream route.  bt: (cols, rows) matrix, transposed, overwritten with
-// the packed result; tauv: (kp,) zero-filled by the caller; perm: (cols,)
-// int32 holding 0..cols-1; pval/pidx: scratch of ceil(cols / 4) entries.
-extern "C" int cpqr_f32(void* bt, void* tauv, void* perm, void* pval,
-                        void* pidx, const void* nsteps, int rows, int cols,
-                        void* stream) {
-  return cpqr_run<float>((float*)bt, (float*)tauv, (int*)perm, (float*)pval,
-                         (int*)pidx, (const int*)nsteps, rows, cols,
-                         (cudaStream_t)stream);
-}
-
-extern "C" int cpqr_f64(void* bt, void* tauv, void* perm, void* pval,
-                        void* pidx, const void* nsteps, int rows, int cols,
-                        void* stream) {
-  return cpqr_run<double>((double*)bt, (double*)tauv, (int*)perm,
-                          (double*)pval, (int*)pidx, (const int*)nsteps, rows,
-                          cols, (cudaStream_t)stream);
-}
-
 // Resident route.  M: (rows, cols) row-major, read only; out: (cols, rows)
 // packed result; tauv: (kp,) and perm: (cols,) int64, both written in
 // full; scratch: cand (2, blocks, rows), cval (2, blocks), cpos (2, blocks)
@@ -644,8 +408,4 @@ extern "C" int cpqr_barrier_probe(int kind, int blocks, int iters,
 
 extern "C" const char* cpqr_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
-}
-
-extern "C" int cpqr_scratch_entries(int cols) {
-  return (cols + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }

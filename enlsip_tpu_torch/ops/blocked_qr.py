@@ -224,7 +224,7 @@ def _cpqr_xla(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
 
 # ------------------------------------------------------- panel loop
 
-def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
+def _panels_loop(M: torch.Tensor, nb: int, nsteps):
     """geqp3-style panel CPQR (LAPACK xLAQPS structure): within a panel
     the matrix stays STALE and each reflector's effect is carried by the
     accumulator F, with updated_j = B - V_j F_j^T holding exactly; the
@@ -233,9 +233,11 @@ def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
     norms (nrm2 -= R[k, :]^2), with an exact recompute at every panel
     start, so downdating drift is bounded to one panel.
 
-    Same contract as :func:`_cpqr_xla`; individual values differ by
-    reduction order, and pivot tie-breaking can differ where downdated
-    and exact norms round differently."""
+    Returns ``(B, V, taus, perm, nb, ub)``: the final matrix (R above the
+    diagonal, the Householder betas on it and zeros below it in the
+    factored columns, the updated trailing matrix in the others), the
+    reflectors (rows, kp), tau (kp,), the permutation, the panel width
+    and the number of steps taken."""
     rows, cols = M.shape
     kmax = min(rows, cols)
     nb, kp = panel_width(kmax, nb)
@@ -303,10 +305,41 @@ def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
         B = torch.where(diag_mask, beta_of_col[None, :], B)
         V[:, s:s + nb] = Vp
         taus[s:s + nb] = tp
+    return B, V, taus, perm, nb, ub
 
-    R = torch.triu(B[:kmax, :])
+
+def _cpqr_xla_panels(M: torch.Tensor, nb: int, nsteps) -> CPQRF:
+    """The panel loop (:func:`_panels_loop`) as a :class:`CPQRF`.  Same
+    contract as :func:`_cpqr_xla`; individual values differ by reduction
+    order, and pivot tie-breaking can differ where downdated and exact
+    norms round differently."""
+    B, V, taus, perm, nb, _ = _panels_loop(M, nb, nsteps)
+    R = torch.triu(B[:min(M.shape), :])
     return CPQRF(R=R, perm=perm, V=V, tau=taus, T=_panel_T(V, taus, nb),
                  diag=torch.diagonal(R).clone())
+
+
+def cpqr_panels_packed_plain(M: torch.Tensor, nsteps, nb: int = NB):
+    """The panel loop (:func:`_panels_loop`, the JAX package's
+    ``_cpqr_xla_panels``) returning the fused kernel's packed triple, as
+    :func:`cpqr_packed_plain` packs it: ``Bt`` (cols, rows) with R above
+    the diagonal, the beta on it and the reflector tails below in every
+    factored column, the updated trailing matrix in the others; ``tau``
+    (kp,), zero past ``nsteps``; ``perm`` (cols,) int64.  This is the
+    plain version of B1's panel route (``ops/cpqr_hopper.py``).
+
+    :func:`unpack_packed` gives back :func:`_cpqr_xla_panels`'s
+    :class:`CPQRF` where the columns past ``nsteps`` hold nothing below
+    the diagonal (every step taken, or a masked buffer such as J2);
+    otherwise V's columns past ``nsteps`` carry that trailing part (as
+    for the rank-1 loop), where T makes them no-ops.  ``nsteps``: an
+    int, or a CPU tensor (read on the host)."""
+    B, V, taus, perm, _, ub = _panels_loop(M, nb, nsteps)
+    Bt = B.t().clone(memory_format=torch.contiguous_format)
+    below = (torch.arange(M.shape[0], device=M.device)[None, :]
+             > torch.arange(ub, device=M.device)[:, None])
+    Bt[:ub] = torch.where(below, V[:, :ub].t(), Bt[:ub])
+    return Bt, taus, perm
 
 
 def _cpqr_xla_panels_lanes(M: torch.Tensor, nb: int, nsteps) -> CPQRF:

@@ -1,41 +1,48 @@
 """Fused column-pivoted QR on an NVIDIA Hopper card: the wrapper of
-``csrc/cpqr.cu``.
+``csrc/cpqr.cu`` and ``csrc/cpqr_panels.cu``.
 
 Replaces the TPU kernel ``enlsip_tpu/ops/pallas_qr2.py::_kernel`` (and
-its wrapper ``cpqr_pallas2_packed``).  The work is a sequential chain of
-Householder steps, each a card-wide dependency norms -> pivot ->
-reflector -> update, so the kernel is bound by what one such round trip
-costs, not by bytes or arithmetic; the source note in ``csrc/cpqr.cu``
-says what its design does about it.
+its wrapper ``cpqr_pallas2_packed``), and above the TPU's VMEM gate what
+the JAX package runs in its place, ``enlsip_tpu/ops/blocked_qr.py::
+_cpqr_xla_panels``.  The work is a sequential chain of Householder steps,
+each a card-wide dependency norms -> pivot -> reflector -> update, so the
+kernels are bound by what one such round trip costs, not by bytes or
+arithmetic; the source notes say what each design does about it.
 
-Two hand-written routes, chosen by :func:`cpqr_hopper` from the shape
-and the device's properties alone:
+Two hand-written routes, chosen by the pure rule :func:`b1_route` from
+the shape, dtype and the device's properties alone:
 
-* :func:`cpqr_hopper_resident`: one persistent cooperative launch with
-  the matrix resident in the card's shared memory, one grid-wide barrier
-  a step.  Taken when :func:`fits_resident` says the matrix fits;
-* :func:`cpqr_hopper_stream`: two small launches a step on a transposed
-  copy in global memory, for everything else.
+* ``"resident"``, :func:`cpqr_hopper_resident`: one persistent
+  cooperative launch with the matrix resident in the card's shared
+  memory and EXACT norms every step, as the Pallas kernel keeps the
+  matrix in VMEM.  Taken where :func:`fits_resident` says it fits;
+* ``"panels"``, :func:`cpqr_hopper_panels`: one persistent cooperative
+  launch of the JAX package's geqp3 panel loop (DOWNDATED norms, an
+  exact recompute at each panel start), for everything else, as the TPU
+  takes that loop above its 12 MB VMEM gate.
 
 :func:`cpqr_hopper_lanes` takes a batch: the same route once a lane,
 each lane's step count read from its slot of a (B,) device buffer.
 
-Beside the kernel:
+Beside the kernels:
 
-* its plain PyTorch version, :func:`cpqr_packed_plain` (the rank-1
-  loop of ``ops/blocked_qr.py``), which the three entry points take ONLY
-  for a tensor that lies on the CPU.  For a CUDA tensor they launch the
-  kernel or raise;
+* their plain PyTorch versions, :func:`cpqr_packed_plain` (the rank-1
+  loop of ``ops/blocked_qr.py``, exact norms) and
+  :func:`cpqr_panels_packed_plain` (the panel loop), which the entry
+  points take ONLY for a tensor that lies on the CPU.  For a CUDA tensor
+  they launch a kernel or raise.  On the CPU the dispatch takes the
+  route :func:`b1_route` names for an H100 (:data:`H100_LIMITS`);
 * ``cpqr_hopper.launches``, a plain integer counting kernel launches
   (one per factorization sent to the card, by either route; a launch
   captured into a CUDA graph counts on the device at every replay, see
-  ``_graph.launches``), and ``cpqr_hopper.last_route``, the name of the
+  ``_graph.launches``), ``cpqr_hopper_panels.launches`` those of the
+  panel route alone, and ``cpqr_hopper.last_route``, the name of the
   route the last one took.
 
 The number of steps is a 0-d int32 tensor on the card that the kernels
-read (``pallas_qr2.py`` takes it in SMEM), and the resident route's
-grid-barrier counter is zeroed by a memset enqueued before the launch,
-so both routes can be captured into a graph and replayed.
+read (``pallas_qr2.py`` takes it in SMEM), and each launch's grid-barrier
+counter is zeroed by a memset enqueued before it, so both routes can be
+captured into a graph and replayed.
 """
 
 from __future__ import annotations
@@ -46,12 +53,24 @@ import torch
 
 from .. import _graph
 from .._lanes import const
-from .blocked_qr import cpqr_packed_plain, panel_width
+from .blocked_qr import (cpqr_packed_plain, cpqr_panels_packed_plain,
+                         panel_width)
 
-_STREAM = {torch.float32: "cpqr_f32", torch.float64: "cpqr_f64"}
 _RESIDENT = {torch.float32: "cpqr_resident_f32",
              torch.float64: "cpqr_resident_f64"}
+_PANELS = {torch.float32: "cpqr_panels_f32", torch.float64: "cpqr_panels_f64"}
 _limits: dict[int, tuple[int, int, bool]] = {}
+
+# (SM count, opt-in shared bytes a block, cooperative launches) of the
+# card the port is written for, an H100 SXM: the route a CPU tensor's
+# plain version follows.
+H100_LIMITS = (132, 232_448, True)
+
+# The panel kernel's layout (``csrc/cpqr_panels.cu``): warps a block, the
+# bytes it stages in shared memory, own columns a warp at most.
+_PANEL_WARPS = 16
+_PANEL_STAGE_BYTES = 8 * 64 * 65
+_PANEL_MAX_COLS_PER_WARP = 8
 
 
 def _library():
@@ -59,9 +78,6 @@ def _library():
     lib = load_library("cpqr")
     if not getattr(lib, "_enlsip_bound", False):
         ptr, i = ctypes.c_void_p, ctypes.c_int
-        for fn in _STREAM.values():
-            getattr(lib, fn).argtypes = [ptr] * 6 + [i, i, ptr]
-            getattr(lib, fn).restype = i
         for fn in _RESIDENT.values():
             getattr(lib, fn).argtypes = [ptr] * 9 + [i] * 4 + [ptr]
             getattr(lib, fn).restype = i
@@ -73,8 +89,21 @@ def _library():
         lib.cpqr_barrier_probe.restype = i
         lib.cpqr_error_string.argtypes = [i]
         lib.cpqr_error_string.restype = ctypes.c_char_p
-        lib.cpqr_scratch_entries.argtypes = [i]
-        lib.cpqr_scratch_entries.restype = i
+        lib._enlsip_bound = True
+    return lib
+
+
+def _panels_library():
+    from ._build import load_library
+    lib = load_library("cpqr_panels")
+    if not getattr(lib, "_enlsip_bound", False):
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        for fn in _PANELS.values():
+            getattr(lib, fn).argtypes = [ptr] * 7 + [i] * 5 + [ptr]
+            getattr(lib, fn).restype = i
+        for fn in (lib.cpqr_panels_shared_bytes, lib.cpqr_panels_scratch_bytes):
+            fn.argtypes = [i] * 5
+            fn.restype = ctypes.c_longlong
         lib._enlsip_bound = True
     return lib
 
@@ -118,7 +147,7 @@ def fits_resident(rows: int, cols: int, dtype, sm_count: int,
     ``dtype`` fit the shared memory of a card with ``sm_count`` SMs and
     ``shared_bytes_per_block`` opt-in bytes a block, one block an SM,
     columns dealt round-robin?"""
-    if dtype not in _STREAM or rows < 1 or cols < 1 or sm_count < 1:
+    if dtype not in _RESIDENT or rows < 1 or cols < 1 or sm_count < 1:
         return False
     itemsize = torch.empty(0, dtype=dtype).element_size()
     blocks = min(sm_count, cols)
@@ -127,11 +156,74 @@ def fits_resident(rows: int, cols: int, dtype, sm_count: int,
             <= shared_bytes_per_block)
 
 
+def _panels_shared_bytes(rows: int, cols: int, blocks: int, nb: int,
+                         itemsize: int) -> int:
+    """Dynamic shared memory of one block of the panel kernel: the stage,
+    the F rows, norms, W^T v, row k and eight W^T v partials of its
+    ``ceil(cols / blocks)`` columns, four panel-width vectors, and two
+    int32 lists of its columns (as ``csrc/cpqr_panels.cu`` sizes it)."""
+    nloc = -(-cols // blocks)
+    return (_PANEL_STAGE_BYTES + (nloc * (nb + 11) + 4 * nb) * itemsize
+            + 8 * nloc)
+
+
+def fits_panels(rows: int, cols: int, dtype, sm_count: int,
+                shared_bytes_per_block: int) -> bool:
+    """Does the panel kernel's layout take a (rows, cols) matrix of
+    ``dtype`` on a card with ``sm_count`` SMs and
+    ``shared_bytes_per_block`` opt-in bytes a block?  Its shared memory
+    holds the F rows of a block's columns and a warp holds the sums of at
+    most 8 of them, so it bounds the columns (on an H100: 16,896 in
+    either dtype, 128 a block), not the rows."""
+    if dtype not in _PANELS or rows < 1 or cols < 1 or sm_count < 1:
+        return False
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    return _panels_take(rows, cols, itemsize, min(sm_count, cols),
+                        shared_bytes_per_block)
+
+
+def _panels_take(rows: int, cols: int, itemsize: int, blocks: int,
+                 shared_bytes_per_block: int) -> bool:
+    """The panel kernel's layout on ``blocks`` blocks: int32 indices, at
+    most 128 columns a block, its shared memory within the limit."""
+    nb, _ = panel_width(min(rows, cols))
+    return (rows * cols < 2 ** 31 and
+            -(-cols // blocks) <= _PANEL_WARPS * _PANEL_MAX_COLS_PER_WARP and
+            _panels_shared_bytes(rows, cols, blocks, nb, itemsize)
+            <= shared_bytes_per_block)
+
+
+def b1_route(rows: int, cols: int, dtype, sm_count: int, shared_bytes: int,
+             coop: bool) -> str:
+    """B1's route for a (rows, cols) matrix of ``dtype`` on a card with
+    ``sm_count`` SMs, ``shared_bytes`` opt-in bytes a block and
+    cooperative launches or not, a pure function: ``"resident"`` where
+    :func:`fits_resident` holds and the card takes cooperative launches
+    (the matrix in shared memory, exact norms, as the Pallas kernel keeps
+    it in VMEM); ``"panels"`` otherwise (the JAX package's geqp3 panel
+    loop with downdated norms, which it runs where the Pallas kernel does
+    not fit)."""
+    if coop and fits_resident(rows, cols, dtype, sm_count, shared_bytes):
+        return "resident"
+    return "panels"
+
+
+def _route_of(M: torch.Tensor) -> str:
+    """:func:`b1_route` of ``M``'s trailing (rows, cols): by its card's
+    properties, or by :data:`H100_LIMITS` for a CPU tensor."""
+    limits = (_device_limits(M.device) if M.device.type == "cuda"
+              else H100_LIMITS)
+    return b1_route(M.shape[-2], M.shape[-1], M.dtype, *limits)
+
+
+_PLAIN = {"resident": cpqr_packed_plain, "panels": cpqr_panels_packed_plain}
+
+
 def _checked(name: str, M: torch.Tensor, nsteps):
     if M.ndim != 2 or M.shape[0] == 0 or M.shape[1] == 0:
         raise ValueError(f"{name} takes a non-empty matrix, got shape "
                          f"{tuple(M.shape)}")
-    if M.dtype not in _STREAM:
+    if M.dtype not in _RESIDENT:
         raise TypeError(f"{name} takes float32 or float64, got {M.dtype}")
     if M.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name} takes a CPU or CUDA tensor, got {M.device}")
@@ -149,6 +241,8 @@ def _checked(name: str, M: torch.Tensor, nsteps):
 
 def _launched(route: str) -> None:
     _graph.count_launch(cpqr_hopper)
+    if route == "panels":
+        _graph.count_launch(cpqr_hopper_panels)
     cpqr_hopper.last_route = route
 
 
@@ -197,70 +291,95 @@ def _resident_into(M, Bt, tau, perm, nsteps_ptr: int, blocks: int,
         _raise_on(lib, err, "cpqr resident kernel launch")
 
 
-def _stream_into(Bt, tau, perm, nsteps_ptr: int, count) -> None:
-    """Stream-route launches on the current device and stream, in place on
-    each transposed copy of the list ``Bt`` (contiguous (cols, rows)) with
-    ``tau`` zeroed and ``perm`` an int32 identity, the i-th reading its
-    step count at ``nsteps_ptr + 4 i``.  ``count()`` is called before each
-    factorization's launches."""
-    cols, rows = Bt[0].shape
-    dtype, dev = Bt[0].dtype, Bt[0].device
-    lib = _library()
-    # (scratch freed on return is safe, as above)
-    nscratch = lib.cpqr_scratch_entries(cols)
-    pval = torch.empty(nscratch, dtype=dtype, device=dev)
-    pidx = torch.empty(nscratch, dtype=torch.int32, device=dev)
+def _panel_blocks(M: torch.Tensor, max_blocks: int | None = None) -> int:
+    """Blocks of a panel launch on ``M``'s trailing (rows, cols): at most
+    one an SM and ``max_blocks``; raises where the kernel's layout does
+    not take the matrix on them."""
+    rows, cols = M.shape[-2:]
+    sms, shared, coop = _device_limits(M.device)
+    blocks = min(sms, cols, max_blocks or sms)
+    if not coop or not _panels_take(rows, cols, M.element_size(), blocks,
+                                    shared):
+        nb, _ = panel_width(min(rows, cols))
+        raise ValueError(
+            f"cpqr_hopper_panels: a {rows} x {cols} {M.dtype} matrix needs "
+            f"{_panels_shared_bytes(rows, cols, blocks, nb, M.element_size())}"
+            f" bytes of shared memory a block and {-(-cols // blocks)} "
+            f"columns a block on {blocks} blocks; the device gives {shared} "
+            f"bytes, at most {_PANEL_WARPS * _PANEL_MAX_COLS_PER_WARP} "
+            f"columns (cooperative launch: {coop})")
+    return blocks
+
+
+def _panels_into(M, Bt, tau, perm, nsteps_ptr: int, blocks: int,
+                 count) -> None:
+    """Panel launches on the current device and stream, one a matrix of
+    the lists ``M`` (contiguous (rows, cols)) -> ``Bt``, ``tau``,
+    ``perm`` (contiguous outputs), the i-th reading its step count at
+    ``nsteps_ptr + 4 i``.  ``count()`` is called before each launch."""
+    rows, cols = M[0].shape
+    dtype, dev = M[0].dtype, M[0].device
+    lib = _panels_library()
+    nb, kp = panel_width(min(rows, cols))
+    itemsize = M[0].element_size()
+    # One scratch set (the working copy W among it) for the launches, in
+    # stream order; freed on return, which is safe as for the resident
+    # route's scratch.
+    scratch = torch.empty(lib.cpqr_panels_scratch_bytes(rows, cols, blocks,
+                                                        nb, itemsize),
+                          dtype=torch.uint8, device=dev)
+    counter = torch.empty(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
-    for i, (bt, t, p) in enumerate(zip(Bt, tau, perm)):
+    for i, (m, bt, t, p) in enumerate(zip(M, Bt, tau, perm)):
         count()
-        err = getattr(lib, _STREAM[dtype])(
-            bt.data_ptr(), t.data_ptr(), p.data_ptr(), pval.data_ptr(),
-            pidx.data_ptr(), nsteps_ptr + 4 * i, rows, cols, stream)
-        _raise_on(lib, err, "cpqr stream kernel launch")
+        err = getattr(lib, _PANELS[dtype])(
+            m.data_ptr(), bt.data_ptr(), t.data_ptr(), p.data_ptr(),
+            scratch.data_ptr(), counter.data_ptr(), nsteps_ptr + 4 * i, rows,
+            cols, kp, nb, blocks, stream)
+        # (the error's text from the resident route's library: both are
+        # the CUDA runtime's)
+        _raise_on(_library(), err, "cpqr panel kernel launch")
 
 
-def _resident(M: torch.Tensor, nsteps, max_blocks: int | None = None):
-    """The resident launch on a CUDA matrix, on at most ``max_blocks``
-    blocks (default: one an SM).  The result does not depend on the block
-    count."""
+def _launch(route: str, M: torch.Tensor, nsteps,
+            max_blocks: int | None = None):
+    """One launch of ``route`` on a CUDA matrix, on at most ``max_blocks``
+    blocks (default: one an SM).  The result does not depend on the
+    block count."""
     rows, cols = M.shape
     nsteps = const(nsteps, M.device, torch.int32)
-    blocks = _resident_blocks(M, max_blocks)
+    blocks = (_resident_blocks if route == "resident"
+              else _panel_blocks)(M, max_blocks)
+    into = _resident_into if route == "resident" else _panels_into
     _, kp = panel_width(min(rows, cols))
     dev = M.device
     with torch.cuda.device(dev):
         Bt = torch.empty((cols, rows), dtype=M.dtype, device=dev)
         tau = torch.empty(kp, dtype=M.dtype, device=dev)
         perm = torch.empty(cols, dtype=torch.int64, device=dev)
-        _resident_into([M], [Bt], [tau], [perm], nsteps.data_ptr(), blocks,
-                       lambda: _launched("resident"))
+        into([M], [Bt], [tau], [perm], nsteps.data_ptr(), blocks,
+             lambda: _launched(route))
     return Bt, tau, perm
 
 
 def cpqr_hopper_resident(M: torch.Tensor, nsteps):
-    """:func:`cpqr_hopper` by the resident route; raises for a CUDA matrix
-    that does not fit the card's shared memory."""
+    """:func:`cpqr_hopper` by the resident route (exact norms); raises for
+    a CUDA matrix that does not fit the card's shared memory."""
     nsteps = _checked("cpqr_hopper_resident", M, nsteps)
     if M.device.type == "cpu":
         return cpqr_packed_plain(M, nsteps)
-    return _resident(M, nsteps)
+    return _launch("resident", M, nsteps)
 
 
-def cpqr_hopper_stream(M: torch.Tensor, nsteps):
-    """:func:`cpqr_hopper` by the stream route (any shape)."""
-    nsteps = _checked("cpqr_hopper_stream", M, nsteps)
+def cpqr_hopper_panels(M: torch.Tensor, nsteps):
+    """:func:`cpqr_hopper` by the panel route (the JAX package's
+    ``_cpqr_xla_panels``: NB-column panels, downdated norms); any shape
+    whose columns the kernel's layout takes (:func:`fits_panels`), raises
+    for others."""
+    nsteps = _checked("cpqr_hopper_panels", M, nsteps)
     if M.device.type == "cpu":
-        return cpqr_packed_plain(M, nsteps)
-    rows, cols = M.shape
-    _, kp = panel_width(min(rows, cols))
-    with torch.cuda.device(M.device):
-        # a fresh buffer: the kernel works in place on it
-        Bt = M.t().clone(memory_format=torch.contiguous_format)
-        tau = torch.zeros(kp, dtype=M.dtype, device=M.device)
-        perm = torch.arange(cols, dtype=torch.int32, device=M.device)
-        _stream_into([Bt], [tau], [perm], nsteps.data_ptr(),
-                     lambda: _launched("stream"))
-    return Bt, tau, perm.to(torch.int64)
+        return cpqr_panels_packed_plain(M, nsteps)
+    return _launch("panels", M, nsteps)
 
 
 def cpqr_hopper(M: torch.Tensor, nsteps):
@@ -272,16 +391,15 @@ def cpqr_hopper(M: torch.Tensor, nsteps):
 
     Returns ``(Bt, tau, perm)``: ``Bt`` (cols, rows) packed as
     :func:`cpqr_packed_plain` describes, ``tau`` (kp,), ``perm`` (cols,)
-    int64.  ``M`` itself is not modified.  A CUDA matrix takes the
-    resident route where :func:`fits_resident` holds on its device (and
-    the device takes cooperative launches), the stream route otherwise."""
+    int64.  ``M`` itself is not modified.  The route is
+    :func:`b1_route`'s: "resident" (exact norms) where the matrix fits the
+    card's shared memory, "panels" (downdated norms) otherwise; a CPU
+    tensor takes the plain version of the route an H100 would take."""
     nsteps = _checked("cpqr_hopper", M, nsteps)
+    route = _route_of(M)
     if M.device.type == "cpu":
-        return cpqr_packed_plain(M, nsteps)
-    sms, shared, coop = _device_limits(M.device)
-    if coop and fits_resident(M.shape[0], M.shape[1], M.dtype, sms, shared):
-        return _resident(M, nsteps)
-    return cpqr_hopper_stream(M, nsteps)
+        return _PLAIN[route](M, nsteps)
+    return _launch(route, M, nsteps)
 
 
 def cpqr_hopper_lanes(M: torch.Tensor, nsteps):
@@ -295,52 +413,45 @@ def cpqr_hopper_lanes(M: torch.Tensor, nsteps):
     ``nsteps[b]`` from device memory through a pointer into the (B,)
     int32 buffer and clamps it, so nothing is read back and the launches
     can be captured.  Every lane takes the route :func:`cpqr_hopper`
-    takes for one (rows, cols) matrix: one resident launch where
-    :func:`fits_resident` holds, else the stream route's launches.
+    takes for one (rows, cols) matrix (:func:`b1_route`), one launch a
+    lane; the lanes share one scratch set in stream order.
 
     Returns ``(Bt (B, cols, rows), tau (B, kp), perm (B, cols) int64)``,
     lane b equal to the bits of ``cpqr_hopper(M[b], nsteps[b])``.  On a
-    CPU tensor: the plain version, lane by lane.
-    ``cpqr_hopper_lanes.launches`` counts one launch a lane (a stream
-    factorization's launches count once), ``stream_launches`` those by
-    the stream route, ``last_route`` names the route."""
+    CPU tensor: that route's plain version, lane by lane.
+    ``cpqr_hopper_lanes.launches`` counts one launch a lane,
+    ``panel_launches`` those by the panel route, ``last_route`` names
+    the route."""
     if M.ndim != 3 or 0 in M.shape:
         raise ValueError(f"cpqr_hopper_lanes takes a (B, rows, cols) batch of "
                          f"non-empty matrices, got shape {tuple(M.shape)}")
     _checked("cpqr_hopper_lanes", M[0], None)
     B, rows, cols = M.shape
+    route = _route_of(M)
     if M.device.type == "cpu":
         ns = const(nsteps, M.device).expand(B)
-        outs = [cpqr_packed_plain(M[b], ns[b]) for b in range(B)]
+        outs = [_PLAIN[route](M[b], ns[b]) for b in range(B)]
         return tuple(torch.stack(field) for field in zip(*outs))
     if not M.is_contiguous():
         raise ValueError("cpqr_hopper_lanes takes a contiguous batch")
     dev = M.device
     ns = const(nsteps, dev, torch.int32).expand(B).contiguous()
     _, kp = panel_width(min(rows, cols))
-    sms, shared, coop = _device_limits(dev)
+    blocks = (_resident_blocks if route == "resident" else _panel_blocks)(M)
+    into = _resident_into if route == "resident" else _panels_into
     with torch.cuda.device(dev):
-        if coop and fits_resident(rows, cols, M.dtype, sms, shared):
-            Bt = torch.empty((B, cols, rows), dtype=M.dtype, device=dev)
-            tau = torch.empty((B, kp), dtype=M.dtype, device=dev)
-            perm = torch.empty((B, cols), dtype=torch.int64, device=dev)
-            _resident_into(M, Bt, tau, perm, ns.data_ptr(),
-                           _resident_blocks(M), lambda: _lane_launched("resident"))
-            return Bt, tau, perm
-        # fresh buffers: the kernels work in place on them
-        Bt = M.transpose(-1, -2).clone(memory_format=torch.contiguous_format)
-        tau = torch.zeros((B, kp), dtype=M.dtype, device=dev)
-        perm = torch.arange(cols, dtype=torch.int32,
-                            device=dev).expand(B, cols).contiguous()
-        _stream_into(Bt, tau, perm, ns.data_ptr(),
-                     lambda: _lane_launched("stream"))
-    return Bt, tau, perm.to(torch.int64)
+        Bt = torch.empty((B, cols, rows), dtype=M.dtype, device=dev)
+        tau = torch.empty((B, kp), dtype=M.dtype, device=dev)
+        perm = torch.empty((B, cols), dtype=torch.int64, device=dev)
+        into(M, Bt, tau, perm, ns.data_ptr(), blocks,
+             lambda: _lane_launched(route))
+    return Bt, tau, perm
 
 
 def _lane_launched(route: str) -> None:
     _graph.count_launch(cpqr_hopper_lanes)
-    if route == "stream":
-        _graph.count_launch(cpqr_hopper_lanes, "stream_launches")
+    if route == "panels":
+        _graph.count_launch(cpqr_hopper_lanes, "panel_launches")
     cpqr_hopper_lanes.last_route = route
 
 
@@ -373,7 +484,9 @@ def _barrier_probe_us(kind: int, blocks: int, iters: int = 4000) -> float:
 cpqr_hopper.launches = 0
 cpqr_hopper.last_route = None
 _graph.register_counts(cpqr_hopper)
+cpqr_hopper_panels.launches = 0
+_graph.register_counts(cpqr_hopper_panels)
 cpqr_hopper_lanes.launches = 0
-cpqr_hopper_lanes.stream_launches = 0
+cpqr_hopper_lanes.panel_launches = 0
 cpqr_hopper_lanes.last_route = None
-_graph.register_counts(cpqr_hopper_lanes, "launches", "stream_launches")
+_graph.register_counts(cpqr_hopper_lanes, "launches", "panel_launches")

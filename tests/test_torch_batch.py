@@ -26,7 +26,9 @@ from enlsip_tpu_torch.parallel import (finalize, init_batch, run_batch,
 from enlsip_tpu_torch.problems.classic import HS65_FSTAR
 from enlsip_tpu_torch.testing import assert_tree_close
 
-from torch_port_helpers import F64, hs65_batch_setup, ref_tree, to_port
+from torch_port_helpers import (F64, computed_once, hs65_batch_setup,
+                                ref_tree, to_port)
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 B = 8
 REL = float(np.sqrt(np.finfo(float).eps))
@@ -34,12 +36,18 @@ TOLS = Tols.for_dtype(F64)
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
     jf, tf, starts, (n, m, q, l) = hs65_batch_setup(B, seed=1)
-    jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
-    jres = j_solve_batched(jf, starts, JDims(n, m, q, l), JOptions(), jtols)
-    tres = solve_batched(tf, starts, Dims(n, m, q, l), Options(), TOLS,
-                         dtype=F64, device="cpu")
+
+    def solve():
+        jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
+        jres = j_solve_batched(jf, starts, JDims(n, m, q, l), JOptions(),
+                               jtols)
+        tres = solve_batched(tf, starts, Dims(n, m, q, l), Options(), TOLS,
+                             dtype=F64, device="cpu")
+        return jres, tres
+
+    jres, tres = computed_once(tmp_path_factory, "batch_hs65_setup", solve)
     return jres, tres, tf, starts, Dims(n, m, q, l)
 
 

@@ -22,6 +22,7 @@ from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
 from enlsip_tpu_torch.testing import assert_tree_close
 
 from torch_port_helpers import ref_tree, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 SHAPES = [(3, 7, 2), (7, 3, 3), (16, 20, 9), (5, 5, 5)]
 B = 9

@@ -27,6 +27,7 @@ from enlsip_tpu.ops import pallas_batched_qr as pbq
 from enlsip_tpu_torch.ops import cpqr_batched_hopper as cb
 
 from torch_port_helpers import tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 GROUPS = [1, 2, 4, 8, 16, 32]
 

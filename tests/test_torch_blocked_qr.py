@@ -12,6 +12,7 @@ from enlsip_tpu_torch.ops import blocked_qr as tb
 from enlsip_tpu_torch.testing import assert_tree_close
 
 from torch_port_helpers import ref_tree, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-10
 

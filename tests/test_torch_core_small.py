@@ -19,6 +19,7 @@ from enlsip_tpu_torch.core import weights as tw
 from enlsip_tpu_torch.core import working_set as tws
 
 from torch_port_helpers import tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-12
 

@@ -6,7 +6,7 @@ it replaces, run in interpret mode, and against the JAX rank-1 loop, on
 the shapes of tests/test_pallas_qr2.py plus the masked-``nsteps`` case.
 Tolerance 1e-10 absolute (as tests/test_pallas_qr2.py), perm exact.
 ``chip_smoke.py`` holds the kernel itself (both of its routes) against
-the plain version on the card.
+their plain versions on the card.
 
 What the resident route does that can be tested without a card is tested
 here: its gate ``fits_resident``, and the bookkeeping that replaces the
@@ -26,6 +26,7 @@ from enlsip_tpu_torch.ops import cpqr_hopper as ch
 from enlsip_tpu_torch.testing import assert_tree_close
 
 from torch_port_helpers import ref_tree, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-10
 SHAPES = [(16, 12), (33, 20), (24, 40)]
@@ -253,15 +254,18 @@ def test_resident_bookkeeping_model_matches_pallas_and_plain(kind):
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("route", ["resident", "stream"])
+@pytest.mark.parametrize("route", ["resident", "panels"])
 def test_routes_take_the_plain_version_on_the_cpu(route):
     """Both route names are entry points of their own; on a CPU tensor
-    each is the plain version and counts no launch."""
-    fn = {"resident": ch.cpqr_hopper_resident,
-          "stream": ch.cpqr_hopper_stream}[route]
+    each is its plain version (exact norms for the resident route, the
+    panel loop with downdated norms for the panel route) and counts no
+    launch."""
+    fn, plain = {"resident": (ch.cpqr_hopper_resident, tb.cpqr_packed_plain),
+                 "panels": (ch.cpqr_hopper_panels,
+                            tb.cpqr_panels_packed_plain)}[route]
     M = tt(np.random.default_rng(5).normal(size=(12, 8)))
     before = ch.cpqr_hopper.launches
-    for a, b in zip(fn(M, 6), tb.cpqr_packed_plain(M, 6)):
+    for a, b in zip(fn(M, 6), plain(M, 6)):
         assert torch.equal(a, b)
     assert ch.cpqr_hopper.launches == before
     with pytest.raises((TypeError, ValueError)):
@@ -276,8 +280,10 @@ def test_kernel_matches_plain_version_on_the_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     M = tt(np.random.default_rng(0).normal(size=(257, 193))).cuda()
-    Pt, ptau, pperm = tb.cpqr_packed_plain(M, 193)
-    for fn in (ch.cpqr_hopper, ch.cpqr_hopper_resident, ch.cpqr_hopper_stream):
+    for fn, plain in ((ch.cpqr_hopper, tb.cpqr_packed_plain),
+                      (ch.cpqr_hopper_resident, tb.cpqr_packed_plain),
+                      (ch.cpqr_hopper_panels, tb.cpqr_panels_packed_plain)):
+        Pt, ptau, pperm = plain(M, 193)
         Bt, tau, perm = fn(M, 193)
         assert torch.equal(perm, pperm)
         assert float((Bt - Pt).abs().max()) <= 1e-9 * float(Pt.abs().max())

@@ -41,6 +41,7 @@ from enlsip_tpu_torch.parallel import (finalize, init_batch, run_batch,
 
 import problems as jprob
 from torch_port_helpers import CPU, F64, hs65_batch_setup, ref_tree, to_port, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 from test_torch_driver import PROBLEMS, _row, compare_traces, jax_trace
 from test_torch_ode_fit import (_JCONS, _j_cons, _j_jac, _j_jac_cons,
                                 _torch_setup)

@@ -14,6 +14,7 @@ from enlsip_tpu_torch.core import direction as tdir
 from enlsip_tpu_torch.core import types as ttypes
 
 from torch_port_helpers import to_port, tt, twin_functions
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-9
 EPS_RANK = float(np.sqrt(np.finfo(float).eps))

@@ -31,6 +31,7 @@ from enlsip_tpu_torch.testing import assert_tree_close
 
 import problems as jprob
 from torch_port_helpers import CPU, F64, ref_tree, to_port, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 REL = float(np.sqrt(np.finfo(float).eps))
 DEFAULT_TOLS = (1e-10, REL, REL, REL, REL)

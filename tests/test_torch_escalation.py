@@ -22,6 +22,7 @@ from enlsip_tpu_torch.parallel import escalate_lanes_f64, solve_batched
 from enlsip_tpu_torch.problems.classic import HS65_FSTAR
 
 from torch_port_helpers import F64, hs65_batch_setup
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 B = 8
 F32 = torch.float32

@@ -39,6 +39,7 @@ from enlsip_tpu_torch.parallel import solve_batched
 from enlsip_tpu_torch.problems.giant_m import giant_m, giant_m_from_arrays
 
 from torch_port_helpers import F64, to_port, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-9
 M, N, L = 8192, 16, 3

@@ -33,6 +33,7 @@ from enlsip_tpu_torch.models.model import (_ad_jac, _model_functions,
 from enlsip_tpu_torch.problems import HS_PROBLEMS, get_problem, problem_names
 
 from torch_port_helpers import CPU, F64
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 REL = float(np.sqrt(np.finfo(float).eps))
 NAMES = sorted(HS_PROBLEMS)

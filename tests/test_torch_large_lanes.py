@@ -15,7 +15,8 @@
   starts: exit codes and iterations equal, x within 1e-8 relative.
 * ``batched_route`` at the edges of its gates on both device types.
 * ``cpqr_hopper_lanes`` equal to per-lane ``cpqr_hopper`` calls: on the
-  CPU (the plain version) and, marked ``gpu``, on the card to the bit.
+  CPU (the plain version) and, marked ``gpu``, on the card to the bit,
+  by the resident and the panel route.
 * ``cpqr_blocked.cuda_rank1`` counts the rank-1 routes' calls on a CUDA
   tensor only (the card's half marked ``gpu``).
 
@@ -45,7 +46,8 @@ from enlsip_tpu_torch.parallel import solve_batched
 from enlsip_tpu_torch.problems.classic import chained_rosenbrock
 
 from torch_dist_cases import large_qr_matrix
-from torch_port_helpers import CPU, F64, tt
+from torch_port_helpers import CPU, F64, computed_once, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 REL = float(np.sqrt(np.finfo(float).eps))
 
@@ -119,7 +121,12 @@ def test_c9_chained_rosenbrock_jacobians_take_vmap():
 # ------------------------------------------- a batch of large problems
 
 @pytest.fixture(scope="module")
-def cr200_batches():
+def cr200_batches(tmp_path_factory):
+    return computed_once(tmp_path_factory, "large_lanes_cr200",
+                         _cr200_batches)
+
+
+def _cr200_batches():
     n, B = 200, 2
     kw = jprob.chained_rosenbrock(n)
     jmodel = ej.CnlsModel(**kw)
@@ -227,7 +234,7 @@ def test_lane_wrapper_is_the_plain_version_a_lane_on_the_cpu():
 def test_lane_wrapper_equals_single_calls_on_the_card():
     """Needs the card and nvcc (``pytest -m gpu``): every lane's launch
     gives the bits of a single call, by the resident route and by the
-    stream route (a batch too large for shared memory)."""
+    panel route (a batch too large for shared memory)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     M, ns = _lane_inputs("cuda")
@@ -235,7 +242,7 @@ def test_lane_wrapper_equals_single_calls_on_the_card():
     big = tt(rng.normal(size=(2, 3000, 2600))).cuda()
     for batch, steps, route in ((M, ns, "resident"),
                                 (big, torch.tensor([40, 7], dtype=torch.int32,
-                                                   device="cuda"), "stream")):
+                                                   device="cuda"), "panels")):
         got = ch.cpqr_hopper_lanes(batch, steps)
         assert ch.cpqr_hopper_lanes.last_route == route
         for b in range(batch.shape[0]):

@@ -22,6 +22,7 @@ from enlsip_tpu_torch.utils.convert import from_reference, to_numpy
 
 import problems as jprob
 from torch_port_helpers import tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -20,6 +20,7 @@ from enlsip_tpu_torch.core.types import Counters
 from enlsip_tpu_torch.problems.classic import HS65, HS65_FSTAR
 
 from torch_port_helpers import F64, hs65_batch_setup
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 K = 8
 REL = float(np.sqrt(np.finfo(float).eps))

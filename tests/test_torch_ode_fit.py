@@ -35,6 +35,7 @@ from enlsip_tpu_torch.parallel import solve_batched
 from enlsip_tpu_torch.problems import ode_fit as tode
 
 from torch_port_helpers import F64, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 B = 8
 REL = float(np.sqrt(np.finfo(float).eps))

@@ -12,6 +12,7 @@ from enlsip_tpu.ops import qr as jqr
 from enlsip_tpu_torch.ops import qr as tqr
 
 from torch_port_helpers import tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-10
 

@@ -23,6 +23,7 @@ from test_torch_driver import (DEFAULT_TOLS, compare_traces, jax_trace,
                                torch_trace)
 from torch_port_helpers import (twin_data, twin_jax_functions,
                                 twin_torch_functions)
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 FAMILIES = {
     # name: (n, m, q, n_ineq, lower, upper, dup_eq)

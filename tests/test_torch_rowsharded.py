@@ -39,6 +39,8 @@ from enlsip_tpu.core.types import Dims as JDims, Options as JOptions, \
 from enlsip_tpu_torch.ops.blocked_qr import cpqr_blocked, qt_apply
 
 import torch_dist_cases as cases
+from torch_port_helpers import computed_once
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 MESHES = [2, 4]
 VARIANTS = ["tsqrFalse", "tsqrTrue", "tsqr_qr"]
@@ -46,7 +48,9 @@ VARIANTS = ["tsqrFalse", "tsqrTrue", "tsqr_qr"]
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return cases.spawn_ranks("rows", 4, tmp_path_factory.mktemp("ranks"))
+    return computed_once(tmp_path_factory, "ranks_rows",
+                         lambda: cases.spawn_ranks(
+                             "rows", 4, tmp_path_factory.mktemp("ranks")))
 
 
 def _ranks_of(D):
@@ -62,9 +66,15 @@ def _one_device(fns, x0, dims, opts, tols):
 
 
 @pytest.fixture(scope="module")
-def jax_dense():
+def jax_dense(tmp_path_factory):
     """The JAX package's dense solve of tests/test_rowsharded.py's
-    problem (the same numpy draws as ``cases.rows_problem``)."""
+    problem (the same numpy draws as ``cases.rows_problem``), once a run
+    (``test_torch_sharded_graph.py`` takes it too)."""
+    return computed_once(tmp_path_factory, "rowsharded_jax_dense",
+                         _jax_dense_solve)
+
+
+def _jax_dense_solve():
     rng = np.random.default_rng(0)
     T = np.linspace(0.0, 1.0, cases.ROWS_M)
     W = jnp.asarray(rng.normal(size=(cases.ROWS_M, cases.ROWS_N))

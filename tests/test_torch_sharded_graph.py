@@ -40,7 +40,8 @@ from enlsip_tpu_torch.parallel import solve_batched
 
 import torch_dist_cases as cases
 from test_torch_rowsharded import jax_dense  # noqa: F401  (a fixture)
-from torch_port_helpers import F64, hs65_batch_setup
+from torch_port_helpers import F64, computed_once, hs65_batch_setup
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 REL = float(np.sqrt(np.finfo(float).eps))
 MESHES = [2, 4]
@@ -50,7 +51,9 @@ ROW_PROBLEMS = ["dense", "tsqr", "factored"]
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return cases.spawn_ranks("graph", 4, tmp_path_factory.mktemp("ranks"))
+    return computed_once(tmp_path_factory, "ranks_graph",
+                         lambda: cases.spawn_ranks(
+                             "graph", 4, tmp_path_factory.mktemp("ranks")))
 
 
 def _ranks_of(D):
@@ -92,12 +95,14 @@ def test_suite_graph_equals_eager_to_the_bit(ranks, D):
 
 
 @pytest.fixture(scope="module")
-def jax_hs65(eight_devices):
-    jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
-    jf, _, starts, dims = hs65_batch_setup(8, seed=1)
-    np.testing.assert_array_equal(starts, cases.hs65_starts(8, 1))
-    return j_solve_sharded(jf, starts, JDims(*dims), JOptions(), jtols,
-                           mesh=j_batch_mesh(eight_devices))
+def jax_hs65(eight_devices, tmp_path_factory):
+    def solve():
+        jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
+        jf, _, starts, dims = hs65_batch_setup(8, seed=1)
+        np.testing.assert_array_equal(starts, cases.hs65_starts(8, 1))
+        return j_solve_sharded(jf, starts, JDims(*dims), JOptions(), jtols,
+                               mesh=j_batch_mesh(eight_devices))
+    return computed_once(tmp_path_factory, "sharded_graph_jax_hs65", solve)
 
 
 @pytest.mark.parametrize("D", MESHES)
@@ -182,9 +187,12 @@ def test_device_resident_refusals(ranks, D):
 
 
 @pytest.fixture(scope="module")
-def jax_large_qr():
-    f = j_cpqr_blocked(jnp.asarray(cases.large_qr_matrix()))
-    return {k: np.asarray(getattr(f, k)) for k in ("perm", "R", "diag")}
+def jax_large_qr(tmp_path_factory):
+    def factor():
+        f = j_cpqr_blocked(jnp.asarray(cases.large_qr_matrix()))
+        return {k: np.asarray(getattr(f, k)) for k in ("perm", "R", "diag")}
+    return computed_once(tmp_path_factory, "sharded_graph_jax_large_qr",
+                         factor)
 
 
 @pytest.mark.parametrize("D", MESHES)

@@ -31,7 +31,8 @@ from enlsip_tpu_torch.parallel import (batch_mesh, fuse_families,
                                        solve_suite_batched, solve_suite_fused)
 
 import torch_dist_cases as cases
-from torch_port_helpers import F64, hs65_batch_setup
+from torch_port_helpers import F64, computed_once, hs65_batch_setup
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 REL = float(np.sqrt(np.finfo(float).eps))
 X_ATOL = 1e-12
@@ -41,19 +42,23 @@ MESHES = [2, 4]
 
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
-    return cases.spawn_ranks("sharding", 4, tmp_path_factory.mktemp("ranks"))
+    return computed_once(tmp_path_factory, "ranks_sharding",
+                         lambda: cases.spawn_ranks(
+                             "sharding", 4, tmp_path_factory.mktemp("ranks")))
 
 
 @pytest.fixture(scope="module")
-def jax_sharded(eight_devices):
-    jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
-    out = {}
-    for B, seed in BATCHES:
-        jf, _, starts, dims = hs65_batch_setup(B, seed=seed)
-        np.testing.assert_array_equal(starts, cases.hs65_starts(B, seed))
-        out[B] = j_solve_sharded(jf, starts, JDims(*dims), JOptions(), jtols,
-                                 mesh=j_batch_mesh(eight_devices))
-    return out
+def jax_sharded(eight_devices, tmp_path_factory):
+    def solve():
+        jtols = JTols(*(jnp.float64(v) for v in (1e-10, REL, REL, REL, REL)))
+        out = {}
+        for B, seed in BATCHES:
+            jf, _, starts, dims = hs65_batch_setup(B, seed=seed)
+            np.testing.assert_array_equal(starts, cases.hs65_starts(B, seed))
+            out[B] = j_solve_sharded(jf, starts, JDims(*dims), JOptions(),
+                                     jtols, mesh=j_batch_mesh(eight_devices))
+        return out
+    return computed_once(tmp_path_factory, "sharding_jax_sharded", solve)
 
 
 def _ranks_of(D):

@@ -17,6 +17,7 @@ from enlsip_tpu_torch.core import types as ttypes
 from enlsip_tpu_torch.testing import assert_tree_close
 
 from torch_port_helpers import ref_tree, to_port, tt, twin_functions
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ATOL = 1e-9
 N, M, Q, L = 6, 9, 2, 7

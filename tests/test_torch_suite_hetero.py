@@ -45,7 +45,8 @@ from enlsip_tpu_torch.parallel import (FusedSuite, fuse_families,
 from enlsip_tpu_torch.parallel.hetero import PAD_CX, _pad_family
 from enlsip_tpu_torch.problems import problem_names
 
-from torch_port_helpers import F64
+from torch_port_helpers import F64, computed_once
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 ROBUST = ["hs14", "hs65", "hs26", "hs53"]
 KNIFE_EDGE = ["hs42"]
@@ -69,22 +70,29 @@ def _jtols(dtype):
 
 
 @pytest.fixture(scope="module")
-def suites():
+def suites(tmp_path_factory):
     tfams = hs_scenario_batch(NAMES, per_family=B_FAM, seed=1, device="cpu")
-    buck = solve_suite_batched(tfams, Options(), _tols, dtype=F64,
-                               device="cpu")
     tfs = fuse_families(tfams, device="cpu")
-    fused = solve_suite_fused(tfams, Options(), _tols, dtype=F64, fused=tfs,
-                              device="cpu")
+
+    def solve():
+        buck = solve_suite_batched(tfams, Options(), _tols, dtype=F64,
+                                   device="cpu")
+        fused = solve_suite_fused(tfams, Options(), _tols, dtype=F64,
+                                  fused=tfs, device="cpu")
+        return buck, fused
+
+    buck, fused = computed_once(tmp_path_factory, "suite_hetero_port", solve)
     return tfams, buck, tfs, fused
 
 
 @pytest.fixture(scope="module")
-def jax_side():
+def jax_side(tmp_path_factory):
     jfams = j_scenarios(NAMES, per_family=B_FAM, seed=1)
     jfs = j_fuse(jfams)
-    jres = j_solve_fused(jfams, JOptions(), _jtols, dtype=jnp.float64,
-                         fused=jfs)
+    jres = computed_once(
+        tmp_path_factory, "suite_hetero_jax",
+        lambda: j_solve_fused(jfams, JOptions(), _jtols, dtype=jnp.float64,
+                              fused=jfs))
     return jfams, jfs, jres
 
 

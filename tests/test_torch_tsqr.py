@@ -22,6 +22,7 @@ from enlsip_tpu_torch.ops.qr import pseudo_rank
 from enlsip_tpu_torch.testing import assert_tree_close
 
 from torch_port_helpers import ref_tree, to_port, tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-10, rtol=1e-10)
 M_ROWS, N_COLS = 8192, 12

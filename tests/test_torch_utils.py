@@ -45,6 +45,7 @@ from enlsip_tpu_torch.utils.debug import (first_nonfinite_report,
                                           guarded_functions)
 
 from torch_port_helpers import F64, hs65_batch_setup
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 B = 8
 REL = float(np.sqrt(np.finfo(float).eps))

@@ -22,6 +22,7 @@ from enlsip_tpu_torch.ops import blocked_qr as tb
 from enlsip_tpu_torch.ops import wy_hopper as wy
 
 from torch_port_helpers import tt
+from torch_port_helpers import release_jax_executables  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-10, atol=1e-10)
 # (rows, n, k, Pallas row block): the shapes of tests/test_pallas_wy.py,

@@ -1,7 +1,13 @@
 """Shared helpers of the ``test_torch_*`` files: hand the JAX package's
-structures over to the PyTorch port as nested dicts of numpy arrays."""
+structures over to the PyTorch port as nested dicts of numpy arrays, and
+compute a file's costly reference once for all the workers of a run."""
+
+import fcntl
+import os
+import sys
 
 import numpy as np
+import pytest
 import torch
 
 from enlsip_tpu_torch.utils.convert import from_reference
@@ -14,6 +20,85 @@ F64 = torch.float64
 # thread a core in every worker oversubscribes the machine and slows the
 # other workers' tests, the timed ones among them.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def release_jax_executables():
+    """At the end of each test module that imports it: drop the JAX
+    package's compiled executables (``jax.clear_caches()``).  XLA maps
+    memory for every executable it builds and a process may hold at most
+    ``vm.max_map_count`` maps; a worker that carries a file's executables
+    into the next JAX-heavy file (``test_hs_suite.py``'s module fixture
+    adds some 35,000 maps) can cross that limit, and XLA's compiler then
+    dies of a segmentation fault (``probe_map_count.py`` measures it).
+    The caches are dropped only once the process holds more than
+    ``MAP_COUNT_TO_RELEASE`` maps, so a worker that runs a module's tests
+    in several turns does not compile them again each time."""
+    yield
+    if "jax" in sys.modules and _map_count() > MAP_COUNT_TO_RELEASE:
+        sys.modules["jax"].clear_caches()
+
+
+# Well under the 65,530 maps a Linux process may hold by default, less the
+# ~35,000 that the heaviest module fixture of the suite adds.
+MAP_COUNT_TO_RELEASE = 16_000
+
+
+def _map_count() -> int:
+    """Memory maps this process holds (every map counts where /proc is
+    missing, so the caches are always dropped there)."""
+    try:
+        with open("/proc/self/maps") as f:
+            return sum(1 for _ in f)
+    except OSError:
+        return MAP_COUNT_TO_RELEASE + 1
+
+
+def run_dir(tmp_path_factory):
+    """The directory every pytest-xdist worker of one run shares (the
+    parent of each worker's base temporary directory), or the base
+    temporary directory of a run without workers."""
+    base = tmp_path_factory.getbasetemp()
+    return base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base
+
+
+def computed_once(tmp_path_factory, key: str, compute):
+    """``compute()``, run by the first worker of the run that asks for
+    ``key`` and loaded from disk by every other.
+
+    Under ``--dist load`` the tests of one file are spread over the
+    workers, and each worker that runs one of them runs the file's module
+    fixtures again: a JAX reference solve, a set of gloo ranks.  The
+    result (tensors, numpy arrays and plain containers of them; JAX
+    arrays become numpy arrays) is saved with ``torch.save`` under a file
+    lock, so a worker that asks while another computes waits for it."""
+    path = run_dir(tmp_path_factory) / f"computed_once_{key}.pt"
+    with open(f"{path}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if path.exists():
+                return torch.load(path, weights_only=False)
+            out = _to_numpy_leaves(compute())
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(out, tmp)
+            os.replace(tmp, path)
+            return out
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _to_numpy_leaves(obj):
+    """JAX arrays inside ``obj`` (NamedTuples, tuples, lists, dicts) as
+    numpy arrays; everything else as it is."""
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(_to_numpy_leaves(v) for v in obj))
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_numpy_leaves(v) for v in obj)
+    if isinstance(obj, dict):
+        return {k: _to_numpy_leaves(v) for k, v in obj.items()}
+    if type(obj).__module__.startswith("jax"):
+        return np.asarray(obj)
+    return obj
 
 
 def ref_tree(obj):
