@@ -36,15 +36,26 @@ derivatives; c: dense Jacobian; d: dense, ``tall_qr="qr"``) with seconds
 per solve, iterations, exit code, active constraints, launches of each
 kernel, read-backs per iteration and peak device memory.
 ``giant_m_float64`` solves the same problem at float64 and full width in
-the four configurations on the captured graph (one replay and one
-read-back a solve; seconds of three replays, the capturing call's
-seconds, iterations, exit code, active constraints at the solution,
-|x[:5] - blo|, ||x - x_a|| / ||x_a||, launches of each kernel counted on
-the card at replay, peak memory) and (a) once more through the eager
-loop (x, exit code and iterations equal to the bit); it fails unless
-every exit code is > 0, >= 5 constraints are active with x[:5] at blo to
-1e-6, (b)-(d) are within 1e-9 of (a) and only the configuration's kernel
-ran.  The ``kernels`` line has a ``<name>_float64`` entry for each of
+the four configurations through the eager loop and then on the captured
+graph (one replay and one read-back a solve; seconds of three replays, the
+capturing call's seconds, iterations, exit code, active constraints at the
+solution, |x[:5] - blo|, ||x - x_a|| / ||x_a||, launches of each kernel
+counted on the card at replay; the four memory figures: the eager loop's
+peak, the capturing call's peak, the memory the cached graph holds and the
+replay's peak) with (a)'s eager x, exit code and iterations equal to the
+bit; it fails unless every exit code is > 0, >= 5 constraints are active
+with x[:5] at blo to 1e-6, (b)-(d) are within 1e-9 of (a) and only the
+configuration's kernel ran; its ``thin_qr`` entry times (d)'s thin QR
+(``ops/tsqr.py::_householder_thin``) alone.  ``giant_m_float64_10m`` does
+the same at 10,000,000 rows with one timed replay a configuration.
+
+Every ``phase`` line carries ``graph_memory``: the phase's capturing calls
+(each call of ``_graph.run`` that captured), with each one's peak
+allocated and the memory its cached graph holds; rows name what a peak
+covers (``capture_peak_GB``: the capturing call; ``replay_peak_GB``: a
+replay, which allocates nothing and so counts live tensors only;
+``eager_peak_GB``: the eager loop; ``graph_held_GB``: the cached graph's
+pool).  The ``kernels`` line has a ``<name>_float64`` entry for each of
 B3-B6 (source ``csrc/wy_gram_f64.cu``; times at 5,000,000 rows and
 ``at_200000_rows``; launches from ``giant_m_float64``).
 
@@ -200,6 +211,7 @@ from enlsip_tpu_torch.ops.cpqr_hopper import (b1_route, cpqr_hopper,
                                               fits_resident)
 from enlsip_tpu_torch.ops import wy_hopper as wy
 from enlsip_tpu_torch.ops.blocked_qr import _panels, cpqr_blocked
+from enlsip_tpu_torch.ops.tsqr import _householder_thin
 from enlsip_tpu_torch.core.batched import lane_functions, lane_hessians
 from enlsip_tpu_torch.parallel import (batch_mesh, escalate_lanes_f64,
                                        finalize, fuse_families,
@@ -262,23 +274,75 @@ def emit(obj) -> None:
 # (phase, its counts), asserted before the kernels line
 RANK1_FAULTS = []
 
+# the capturing calls of the phase in progress, as track_captures
+# measures them
+CAPTURES = []
+
+
+def track_captures() -> None:
+    """Measure every call of ``_graph.run`` that captures a graph (its
+    key not yet cached): the capturing call's peak allocated (the eager
+    warm-up, the capture and the first replay; the peak counter is reset
+    at the call's start) and the memory its cached graph holds
+    (``memory_reserved()`` after the call and an ``empty_cache()``, less
+    the same before it), appended to ``CAPTURES``.  A replay is not
+    touched.  The replay's own peak, which counts live tensors only (a
+    replay allocates nothing: its blocks are the graph's), is what the
+    rows call ``replay_peak_GB``."""
+    run = _graph.run
+
+    @functools.wraps(run)
+    def tracked(key, fn, inputs, device, warm=None):
+        dev = torch.device(device)
+        if dev.type != "cuda" or _graph.cached(key, dev):
+            return run(key, fn, inputs, device, warm)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        out = run(key, fn, inputs, device, warm)
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        CAPTURES.append({
+            "capture_peak_GB": peak / 1e9,
+            "graph_held_GB": (torch.cuda.memory_reserved(dev) - reserved)
+            / 1e9})
+        return out
+
+    _graph.run = tracked
+
+
+def captures_summary(captures) -> dict:
+    """A phase's capturing calls: their count, the largest capturing-call
+    peak and held memory, and (the first 12) each call's figures."""
+    return {"captures": len(captures),
+            "capture_peak_GB_max": max(
+                (c["capture_peak_GB"] for c in captures), default=None),
+            "graph_held_GB_max": max(
+                (c["graph_held_GB"] for c in captures), default=None),
+            "each": captures[:12]}
+
 
 def phase(name, fn, hold=("lanes",)):
     """Run one phase, print its result as ``{name: result}`` with the
-    phase's wall seconds and the rank-1 routes' calls on the card in it
+    phase's wall seconds, the rank-1 routes' calls on the card in it
     (``cpqr_blocked.cuda_rank1``, the only factorizations in which the
-    card runs a plain PyTorch loop), and return the result (a tuple's
+    card runs a plain PyTorch loop) and its capturing calls' memory
+    (``graph_memory``, :func:`track_captures`), and return the result (a tuple's
     first member is the printed part).  The counts named in ``hold`` must
     be 0: by default the batched one ("lanes"), since every batch of the
     smoke fits the batched kernel's gate or takes B1 a lane; "single" too
     where every factorization has 192 pivots or more."""
     _graph.clear_graph_cache()    # a phase's graphs hold their pools
     reset_rank1_calls()
+    CAPTURES.clear()
     t0 = time.time()
     out = fn()
     calls = dict(cpqr_blocked.cuda_rank1)
     emit({name: out[0] if isinstance(out, tuple) else out,
-          "phase_seconds": time.time() - t0, "rank1_calls_on_card": calls})
+          "phase_seconds": time.time() - t0, "rank1_calls_on_card": calls,
+          "graph_memory": captures_summary(CAPTURES)})
     if any(calls[k] for k in hold):
         RANK1_FAULTS.append((name, calls))
     return out
@@ -873,6 +937,8 @@ def batched_group_sweep():
 GIANT_M, GIANT_N, GIANT_L = 5_000_000, 100, 50
 # rows of the float64 giant-m solve, one card and row-sharded
 GIANT64_M = 200_000
+# the float64 giant-m solve at twice the bench's rows (giant_m_float64_10m)
+GIANT64_10M_ROWS = 10_000_000
 # (name, m, n, k, on the main path)
 WY_CASES = [
     ("giant-m main path", GIANT_M, GIANT_N, GIANT_L, True),
@@ -1055,7 +1121,8 @@ def solve_giant_m():
     out, x_a, kept = [], None, {}
     for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
         _graph.clear_graph_cache()      # the last configuration's pools
-        _giant_solve(gm, config)                          # warm-up
+        _giant_solve(gm, config)                # warm-up: it captures
+        captured = CAPTURES[-1]
         torch.cuda.reset_peak_memory_stats()
         seconds = []
         for _ in range(3):
@@ -1078,7 +1145,8 @@ def solve_giant_m():
                "launches": launches,
                "launches_per_iteration": launches[kernel] / max(res.n_iter, 1),
                "host_readbacks_per_iteration": readbacks / max(res.n_iter, 1),
-               "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+               **captured,
+               "replay_peak_GB": torch.cuda.max_memory_allocated() / 1e9,
                "max_abs_x_minus_blo": float(
                    (res.x[:5] - gm.blo).abs().max())}
         assert res.exit_code > 0, row
@@ -1104,20 +1172,30 @@ GIANT64_BLO_ATOL = 1e-6
 ACTIVE_ATOL = 1e-8
 
 
-def giant_m_float64(replays=3):
-    """The giant-m problem at float64 and full width (5,000,000 x 100, 50
+def giant_m_float64(rows=GIANT_M, replays=3):
+    """The giant-m problem at float64 and full width (``rows`` x 100, 50
     inequalities, max_iter = 8, data drawn on the card from seed 3) in the
     four configurations, each the one-replay solve of the device-resident
-    loop: a first call that captures the graph, then ``replays`` timed
-    solves (one replay and one read-back each), every count set to 0
-    just before each and read just after.  Active constraints are counted
-    at the solution (c_i(x) <= ACTIVE_ATOL).  (a) is solved once more by
-    the eager loop: x, exit code and iterations equal to the bit."""
+    loop: first the eager loop (``graph=False``), then a first call that
+    captures the graph, then ``replays`` timed solves (one replay and one
+    read-back each), every count set to 0 just before each and read just
+    after.  Active constraints are counted at the solution (c_i(x) <=
+    ACTIVE_ATOL).  (a)'s eager loop gives x, exit code and iterations
+    equal to the bit.  Each row carries the four memory figures (the
+    eager loop's peak allocated, the capturing call's peak, the memory
+    the cached graph holds, the replay's peak; :func:`track_captures`)
+    and their ratios, which the targets read: the capture within 1.5x
+    the eager peak, the held memory within 1.25x of it plus the static
+    inputs.  Then (d)'s thin QR (``ops/tsqr.py::_householder_thin``) of a
+    (rows, 100) float64 matrix is timed alone (``thin_qr``)."""
     _graph.clear_graph_cache()
     d = torch.float64
-    gm = giant_m(GIANT_M, GIANT_N, GIANT_L, seed=3, dtype=d)
+    gm = giant_m(rows, GIANT_N, GIANT_L, seed=3, dtype=d)
     tols = et.Tols.for_dtype(d, DEV)
-    rows, x_a = [], None
+    static = gm.x0.nbytes + sum(t.nbytes for t in tols)
+    torch.cuda.synchronize()
+    data_GB = torch.cuda.memory_allocated() / 1e9
+    rows_out, x_a = [], None
     for config, (factored, second, tall_qr, kernel) in GIANT_CONFIGS.items():
         _graph.clear_graph_cache()      # the last configuration's pools
         fns = gm.factored if factored else gm.dense
@@ -1125,15 +1203,25 @@ def giant_m_float64(replays=3):
                           tall_qr=tall_qr)
         solve = lambda graph=True: core_solve(fns, gm.x0, gm.dims, opts, tols,
                                               dtype=d, graph=graph)
-        _graph.reset_graph_stats()
+        reset_launch_counts()
+        _device.reset_readback_count()
         torch.cuda.synchronize()
-        torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        eager = solve(graph=False)
+        torch.cuda.synchronize()
+        eager_row = {"seconds": time.time() - t0,
+                     "readbacks": _device.readback_count(),
+                     "launches": wy.launch_counts(),
+                     "x_bits_equal": None, "exit_code": eager.exit_code,
+                     "iterations": eager.n_iter}
+        eager_peak = torch.cuda.max_memory_allocated() / 1e9
+        _graph.reset_graph_stats()
         t0 = time.time()
         solve()
         torch.cuda.synchronize()
         first, stats = time.time() - t0, _graph.graph_stats()
-        peak_first = torch.cuda.max_memory_allocated() / 1e9
+        captured = CAPTURES[-1]
         torch.cuda.reset_peak_memory_stats()
         seconds, readbacks = [], []
         for _ in range(replays):
@@ -1146,8 +1234,9 @@ def giant_m_float64(replays=3):
             launches = wy.launch_counts()
             readbacks.append(_device.readback_count())
         x = res.x
+        eager_row["x_bits_equal"] = bool(torch.equal(eager.x, x))
         n_active = int((fns.cons(x) <= ACTIVE_ATOL).sum())
-        row = {"config": config, "factored_hooks": factored,
+        row = {"config": config, "rows": rows, "factored_hooks": factored,
                "second_derivatives": second, "tall_qr": tall_qr,
                "kernel": kernel, "dtype": "float64",
                "seconds_per_solve": statistics.median(seconds),
@@ -1159,29 +1248,17 @@ def giant_m_float64(replays=3):
                "objective": res.f, "active_constraints": n_active,
                "max_abs_x_minus_blo": float((x[:5] - gm.blo).abs().max()),
                "launches": launches, "readbacks_per_solve": readbacks,
-               # the capturing call's peak holds the graph's pool as it is
-               # made; the replays allocate nothing new
-               "peak_GB_first_call": peak_first,
-               "peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+               "data_GB": data_GB, "static_inputs_bytes": static,
+               "eager_peak_GB": eager_peak, **captured,
+               "replay_peak_GB": torch.cuda.max_memory_allocated() / 1e9}
+        row["capture_over_eager"] = row["capture_peak_GB"] / eager_peak
+        row["held_over_eager"] = row["graph_held_GB"] / eager_peak
         if x_a is None:
             x_a = x
         row["rel_dx_vs_a"] = float(torch.linalg.norm(x - x_a)
                                    / torch.linalg.norm(x_a))
-        if config == "a":
-            reset_launch_counts()
-            _device.reset_readback_count()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.time()
-            eager = solve(graph=False)
-            torch.cuda.synchronize()
-            row["eager"] = {
-                "seconds": time.time() - t0,
-                "readbacks": _device.readback_count(),
-                "launches": wy.launch_counts(),
-                "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
-                "x_bits_equal": bool(torch.equal(eager.x, x)),
-                "exit_code": eager.exit_code, "iterations": eager.n_iter}
-        rows.append(row)
+        row["eager"] = eager_row
+        rows_out.append(row)
         emit({"giant_m_float64_row": row})     # printed before it is checked
         assert res.exit_code > 0, row
         assert readbacks == [1] * replays, row
@@ -1199,7 +1276,28 @@ def giant_m_float64(replays=3):
     del gm
     _graph.clear_graph_cache()
     torch.cuda.empty_cache()
-    return rows
+    return {"rows": rows_out, "thin_qr": time_thin_qr(rows)}
+
+
+def time_thin_qr(rows) -> dict:
+    """(d)'s thin QR alone: ``ops/tsqr.py::_householder_thin`` of a
+    (rows, 100) float64 matrix drawn on the card, median of 3 (CUDA
+    events), beside its bound (the matrix read once and V, R written
+    once at the HBM rate; 2 m n^2 - 2 n^3 / 3 operations at the float64
+    rate outside the tensor cores, the larger)."""
+    n, d = GIANT_N, torch.float64
+    g = torch.Generator(device=DEV).manual_seed(5)
+    M = torch.randn((rows, n), generator=g, dtype=d, device=DEV)
+    ms = cuda_ms(lambda: _householder_thin(M), reps=3)
+    bytes_ = 2 * rows * n * 8 + n * n * 8
+    flops = 2 * rows * n * n - 2 * n ** 3 / 3
+    by_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[d] * 1e3
+    del M
+    torch.cuda.empty_cache()
+    return {"shape": [rows, n], "dtype": "float64", "ms": ms,
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
 def _wy_kernel_entries(wcases, giant, gloo, graph_rows, giant64):
@@ -1302,6 +1400,20 @@ def graph_kernel_cases():
     return rows
 
 
+# what the peak allocated over each mode of _run_both / _graph_vs_eager
+# measures
+PEAK_NAMES = {"graph_first": "capture_peak_GB", "graph": "replay_peak_GB",
+              "eager": "eager_peak_GB"}
+
+
+def _held(mode) -> dict:
+    """The memory the graph captured by a ``graph_first`` call holds
+    (:func:`track_captures`)."""
+    if mode != "graph_first" or not CAPTURES:
+        return {}
+    return {"graph_held_GB": CAPTURES[-1]["graph_held_GB"]}
+
+
 def _run_both(run, eager_run):
     """The graph path (its first call captures; timed on a second replay)
     and the eager loop on the same inputs, each with the read-back and
@@ -1330,17 +1442,18 @@ def _run_both(run, eager_run):
                      # the card's span from the first enqueued work to the
                      # last, over the wall clock: a replay has no host gap
                      # inside it, so for the graph path this bounds the busy
-                     # share from above (the profiler cannot trace replays of
-                     # conditional graphs here, see device_loop)
+                     # share from above (device_loop's profile measures it)
                      "device_span_seconds": span,
                      "device_span_share": span / wall,
                      "readbacks": _device.readback_count(),
                      "graph_launches": stats["replays"],
                      "captures": stats["captures"],
                      "capture_seconds": stats["capture_s"],
-                     "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
+                     PEAK_NAMES[mode]:
+                         torch.cuda.max_memory_allocated() / 1e9,
                      "peak_reserved_GB":
                          torch.cuda.max_memory_reserved() / 1e9,
+                     **_held(mode),
                      "launches": {
                          "cpqr_hopper": _graph.launches(cpqr_hopper),
                          "cpqr_batched_packed":
@@ -1357,11 +1470,10 @@ def device_loop(profile=True):
     non-converged lanes) and giant-m (a).  Per path: exit codes,
     iterations or trips, x equal to the bit, read-backs a solve, graph
     launches, capture and replay seconds, the card's span over the wall
-    clock (CUDA events), the eager loop's busy share (profiler, one more
-    solve), peak memory.  The graph path is not profiled: torch.profiler
-    over replays of several graphs with conditional nodes ended in an
-    illegal memory access inside the profiler's window on an H100 (the
-    same replays run clean without it)."""
+    clock (CUDA events), the busy share of the eager loop and of the
+    graph's replay (profiler, one more solve each; beside it the replay's
+    share estimated from the eager loop's kernel time), the capturing
+    call's and the replay's peak memory and the memory the graph holds."""
     rows = []
     cpqr_blocked.cuda_rank1["lanes"] = 0
     kw = chained_rosenbrock(1000)
@@ -1430,6 +1542,7 @@ def _single_row(name, run, eager, profile):
               for m in both}}
     if profile:
         row["eager"]["profile"] = _busy(eager)
+        row["graph"]["profile"] = _busy(run)
         row["graph"]["busy_share_estimate"] = _busy_estimate(row)
     assert g.exit_code == e.exit_code and g.n_iter == e.n_iter, row
     assert row["x_bits_equal"], row
@@ -1459,6 +1572,7 @@ def _batch_row(name, solve, profile):
               for m in both}}
     if profile:
         row["eager"]["profile"] = _busy(lambda: run(False))
+        row["graph"]["profile"] = _busy(lambda: run(True))
         row["graph"]["busy_share_estimate"] = _busy_estimate(row)
     assert row["exit_codes_equal"] and row["x_bits_equal"], row
     assert trips["graph"] == trips["eager"], row
@@ -2120,8 +2234,8 @@ def _graph_vs_eager(solve, keep):
             "rank1_lanes_on_card": cpqr_blocked.cuda_rank1["lanes"],
             "captures": stats["captures"], "replays": stats["replays"],
             "capture_seconds": stats["capture_s"],
-            "peak_GB": torch.cuda.max_memory_allocated() / 1e9,
-            "result": keep(res)}
+            PEAK_NAMES[mode]: torch.cuda.max_memory_allocated() / 1e9,
+            **_held(mode), "result": keep(res)}
     return out
 
 
@@ -2195,6 +2309,7 @@ def _rank_main(rank, world, backend, init_file, out_dir, jobs):
     """One rank: join the group, run ``jobs`` in order, save the results
     (the ``graph`` job's ``hs65`` rows under ``hs65``)."""
     _dist.init_process_group(backend, f"file://{init_file}", world, rank)
+    track_captures()
     out = {job: RANK_JOBS[job](rank, world) for job in jobs}
     if "graph" in out:
         out["hs65"] = out["graph"]["hs65"]
@@ -2616,6 +2731,7 @@ def batched_cr1000():
         run = lambda g: solve_batched(fns, starts, dims, opts, tols,
                                       dtype=dtype, graph=g)
         _, first = _counted(lambda: run(True))
+        held = CAPTURES[-1]["graph_held_GB"]
         res, timed = _counted(lambda: run(True))
         trips = run_batch.last_trips
         eager, eager_stats = _counted(lambda: run(False))
@@ -2630,8 +2746,10 @@ def batched_cr1000():
                "cpqr_hopper_lanes_launches_by_route": launches,
                "launches_per_trip": sum(launches.values()) / max(trips, 1),
                "cpqr_hopper_single_launches": timed["cpqr_hopper_launches"],
-               "peak_GB_capture": first["peak_GB"],
-               "peak_GB_replay": timed["peak_GB"],
+               "capture_peak_GB": first["peak_GB"],
+               "graph_held_GB": held,
+               "replay_peak_GB": timed["peak_GB"],
+               "eager_peak_GB": eager_stats["peak_GB"],
                "exit_codes": res.exit_code.tolist(),
                "iterations": res.n_iter.tolist(),
                "objective": res.f.double().tolist(),
@@ -2695,7 +2813,7 @@ def solve_cr5000():
                "cpqr_hopper_launches": stats["cpqr_hopper_launches"],
                "cpqr_hopper_panels_launches":
                    stats["cpqr_hopper_panels_launches"],
-               "peak_GB": stats["peak_GB"]}
+               "replay_peak_GB": stats["peak_GB"]}
         assert row["status"] == "found_first_order_stationary_point", row
         assert cmax <= c_tol and row["cpqr_route"] == "panels", row
         assert row["readbacks"] == 1, row
@@ -2905,6 +3023,7 @@ def main() -> None:
     emit({"device": {"nvidia_smi": smi, "torch": torch.__version__,
                      "cuda": torch.version.cuda}})
 
+    track_captures()
     t0 = time.time()
     _build.build_all()
     sources = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
@@ -2954,7 +3073,9 @@ def main() -> None:
     phase("small_n", small_n)
     giant, gm, giant_kept = phase("giant_m", solve_giant_m)
     _graph.clear_graph_cache()
-    giant64 = phase("giant_m_float64", giant_m_float64)
+    giant64 = phase("giant_m_float64", giant_m_float64)["rows"]
+    phase("giant_m_float64_10m",
+          lambda: giant_m_float64(GIANT64_10M_ROWS, replays=1))
     phase("device_loop", device_loop)
     hs_rows = phase("hs_suite", hs_suite)
     hetero_stats, hfams, hfused, hopts, hetero_out = phase("hetero_suite",

@@ -13,11 +13,31 @@ that.  While the function is captured, the control-flow helpers of
 predicates back: each becomes a conditional node of the graph
 (``csrc/graph_cond.cu``), an IF whose body holds one side or a WHILE
 whose body holds one trip, so the card evaluates the branch and runs
-ONE side, as the host loop does.  Bodies are captured on side streams,
-one per nesting depth; what they allocate goes to a memory pool of the
-graph's own (``torch.cuda.MemPool``), and what the top level allocates
-to the graph's private pool, so no block of a graph is handed to other
-work while the graph lives.
+ONE side, as the host loop does.
+
+Memory.  The whole function is captured in a root body (an IF node that
+is always taken) on ONE body stream, and so is every body nested in it,
+at any depth (``csrc/graph_cond.cu`` suspends the capture of the
+enclosing body while a nested one is captured on the same stream).
+Everything the capture allocates goes to one memory pool of the graph's
+own (``torch.cuda.MemPool``), so no block of a graph is handed to other
+work while the graph lives.  PyTorch's caching allocator hands a freed
+block out again only to an allocation on the stream it was freed on: on
+one stream, a block that one body frees is reused by the next body, at
+any depth, as the eager loop reuses it in the next step, and the graph
+holds about the eager loop's working set rather than one working set
+per stream.  The reuse is safe because the graph runs its nodes in the
+order they were captured: every body is captured on one stream, and a
+conditional node is added after every node its enclosing body has so
+far, so a block is written again only after every node that used it
+before its free.  A WHILE body replays its trips over memory the
+capture saw freed once; that is safe as long as no block that a body
+reads and that was allocated before the body is freed during the body's
+capture, and none is: such a tensor is held by what runs the body (the
+closures' cells, the loop state that ``_lanes.while_loop`` keeps until
+the node is captured), and a block returns to the pool only when its
+tensor's last reference is gone.  A block allocated inside a trip is
+written in that trip before it is read.
 
 On the CPU the same functions run eagerly as a rehearsal: the helpers
 read their flags directly (what a conditional node does on the card),
@@ -46,14 +66,8 @@ from torch.utils import _pytree as pytree
 
 from ._device import flag_value, forbid_readbacks, to_host_list
 
-# Deepest nesting of conditional bodies a capture may reach (the solver's
-# is about ten: WHILE over iterations > line search > its conds > loops).
-MAX_DEPTH = 24
-
-
 class _State(threading.local):
     mode = None          # None (eager), "capture" or "emulate"
-    depth = 0
     guards = None        # names of the capture's finite-value checks
 
 
@@ -78,12 +92,12 @@ def device_resident() -> bool:
 
 @contextlib.contextmanager
 def _mode(m):
-    before, depth = _state.mode, _state.depth
-    _state.mode, _state.depth = m, 0
+    before = _state.mode
+    _state.mode = m
     try:
         yield
     finally:
-        _state.mode, _state.depth = before, depth
+        _state.mode = before
 
 
 # ----------------------------------------------------------- the library
@@ -98,11 +112,12 @@ def _library():
         lib = load_library("graph_cond")
         ptr, i = ctypes.c_void_p, ctypes.c_int
         lib.cg_begin.argtypes = [ptr, ptr, i, ptr,
-                                 ctypes.POINTER(ctypes.c_ulonglong)]
+                                 ctypes.POINTER(ctypes.c_ulonglong),
+                                 ctypes.POINTER(ptr), ctypes.POINTER(ptr)]
         lib.cg_begin.restype = i
         lib.cg_set.argtypes = [ptr, ctypes.c_ulonglong, ptr]
         lib.cg_set.restype = i
-        lib.cg_end.argtypes = [ptr]
+        lib.cg_end.argtypes = [ptr, ptr, ptr]
         lib.cg_end.restype = i
         lib.cg_runtime_version.restype = i
         lib.cg_driver_version.restype = i
@@ -119,14 +134,25 @@ def _check(err: int, what: str) -> None:
                            f"({err})")
 
 
-_streams: dict = {}
+_body_streams: dict = {}
 
 
-def _child_stream(device, depth: int) -> torch.cuda.Stream:
-    key = (torch.device(device).index, depth)
-    if key not in _streams:
-        _streams[key] = torch.cuda.Stream(device=device)
-    return _streams[key]
+def _card(device) -> torch.device:
+    """``device`` with its index (the current card's where it names
+    none), so that "cuda" and "cuda:0" share one stream and one warm-up."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device(dev.type, torch.cuda.current_device())
+    return dev
+
+
+def _body_stream(device) -> torch.cuda.Stream:
+    """The stream every conditional body of a capture on ``device`` is
+    captured on."""
+    dev = _card(device)
+    if dev not in _body_streams:
+        _body_streams[dev] = torch.cuda.Stream(device=dev)
+    return _body_streams[dev]
 
 
 def _as_flag(pred) -> torch.Tensor:
@@ -140,31 +166,31 @@ def _as_flag(pred) -> torch.Tensor:
 @contextlib.contextmanager
 def _body(kind: int, pred):
     """Capture what the block enqueues into the body of a new IF (kind 0)
-    or WHILE (kind 1) node taken on the device flag ``pred``.  Yields the
-    node's handle (a WHILE body ends with :func:`_set_again`)."""
-    flag = _as_flag(pred)
+    or WHILE (kind 1) node taken on the device flag ``pred`` (``None``:
+    an IF taken at every launch, the root body of :func:`capture`), on
+    the body stream.  Yields the node's handle (a WHILE body ends with
+    :func:`_set_again`).  The flag is held until the body is captured:
+    the node reads it where it was enqueued."""
+    flag = None if pred is None else _as_flag(pred)
     parent = torch.cuda.current_stream()
-    depth = _state.depth + 1
-    if depth > MAX_DEPTH:
-        raise RuntimeError(f"conditional bodies nested deeper than "
-                           f"{MAX_DEPTH}")
-    child = _child_stream(parent.device, depth)
+    body = _body_stream(parent.device)
     handle = ctypes.c_ulonglong()
+    suspended, after = ctypes.c_void_p(), ctypes.c_void_p()
     lib = _library()
-    _check(lib.cg_begin(parent.cuda_stream, child.cuda_stream, kind,
-                        flag.data_ptr(), ctypes.byref(handle)),
+    _check(lib.cg_begin(parent.cuda_stream, body.cuda_stream, kind,
+                        None if flag is None else flag.data_ptr(),
+                        ctypes.byref(handle), ctypes.byref(suspended),
+                        ctypes.byref(after)),
            "adding a conditional node")
-    _state.depth = depth
     failed = False
     try:
-        with torch.cuda.stream(child):
+        with torch.cuda.stream(body):
             yield handle.value
     except BaseException:
         failed = True
         raise
     finally:
-        _state.depth = depth - 1
-        err = lib.cg_end(child.cuda_stream)
+        err = lib.cg_end(body.cuda_stream, suspended, after)
         if not failed:
             _check(err, "ending a conditional body's capture")
 
@@ -327,27 +353,26 @@ _SCRATCH = {}
 def warm_up(device) -> None:
     """Create what the libraries create at their first call on a stream
     (cuBLAS and cuSOLVER handles and workspaces) before a capture, on the
-    capture stream and every body stream, in both dtypes."""
-    dev = torch.device(device)
+    body stream (the capture stream only adds the root node), in both
+    dtypes."""
+    dev = _card(device)
     if dev in _SCRATCH:
         return
-    streams = [_capture_stream(dev)] + [_child_stream(dev, d)
-                                        for d in range(1, MAX_DEPTH + 1)]
-    for st in streams:
-        st.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(st):
-            for dt in (torch.float32, torch.float64):
-                a = torch.eye(4, dtype=dt, device=dev) * 2.0
-                b = a @ a
-                torch.linalg.cholesky_ex(b)
-                torch.linalg.cholesky_ex(b.expand(3, 4, 4))
-                torch.linalg.solve_triangular(a, b, upper=True)
-                torch.linalg.solve_triangular(a.expand(3, 4, 4),
-                                              b.expand(3, 4, 4), upper=True)
-                torch.linalg.qr(torch.ones(64, 4, dtype=dt, device=dev)
-                                + a.repeat(16, 1))
-                torch.bmm(a.expand(3, 4, 4), b.expand(3, 4, 4))
-        torch.cuda.current_stream(dev).wait_stream(st)
+    st = _body_stream(dev)
+    st.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(st):
+        for dt in (torch.float32, torch.float64):
+            a = torch.eye(4, dtype=dt, device=dev) * 2.0
+            b = a @ a
+            torch.linalg.cholesky_ex(b)
+            torch.linalg.cholesky_ex(b.expand(3, 4, 4))
+            torch.linalg.solve_triangular(a, b, upper=True)
+            torch.linalg.solve_triangular(a.expand(3, 4, 4),
+                                          b.expand(3, 4, 4), upper=True)
+            torch.linalg.qr(torch.ones(64, 4, dtype=dt, device=dev)
+                            + a.repeat(16, 1))
+            torch.bmm(a.expand(3, 4, 4), b.expand(3, 4, 4))
+    torch.cuda.current_stream(dev).wait_stream(st)
     _device_slots(dev)
     _guard_slots(dev)
     torch.cuda.synchronize(dev)
@@ -358,7 +383,7 @@ _capture_streams: dict = {}
 
 
 def _capture_stream(device) -> torch.cuda.Stream:
-    dev = torch.device(device)
+    dev = _card(device)
     if dev not in _capture_streams:
         _capture_streams[dev] = torch.cuda.Stream(device=dev)
     return _capture_streams[dev]
@@ -366,9 +391,9 @@ def _capture_stream(device) -> torch.cuda.Stream:
 
 class Graph:
     """A captured function: its graph, the static inputs the caller copies
-    into before a replay, the outputs a replay overwrites, the body
-    pool, how long capture and instantiation took, and the names of its
-    finite-value checks in slot order."""
+    into before a replay, the outputs a replay overwrites, the pool of
+    its memory, how long capture and instantiation took, and the names
+    of its finite-value checks in slot order."""
 
     def __init__(self, graph, inputs, outputs, pool, capture_s: float,
                  guards=()):
@@ -398,13 +423,18 @@ def capture(fn, inputs, device) -> Graph:
             else torch.cuda.current_device()
         with torch.cuda.graph(g, stream=_capture_stream(dev),
                               capture_error_mode="thread_local"):
-            # bodies are captured on side streams: their allocations go
-            # to the graph's own pool (the top level's stay in the
-            # graph's private pool, whose filter is asked first)
-            _begin_allocate(index, pool.id)
+            # the function runs in the root body, on the body stream, and
+            # every allocation made during the capture goes to the graph's
+            # own pool, whatever thread makes it: the backward ops of
+            # reverse-mode AD in a body (a Newton step's Hessians) run on
+            # autograd's device thread, and a block that left the pool
+            # would be freed after the capture while the graph still
+            # writes it (PyTorch's capture stream allocates nothing)
+            torch._C._cuda_beginAllocateToPool(index, pool.id)
             _state.guards = []
             try:
-                with _mode("capture"), forbid_readbacks(strict=False):
+                with _mode("capture"), forbid_readbacks(strict=False), \
+                        _body(0, None):
                     outputs = fn(*inputs)
             finally:
                 # the begin took a reference to the pool, as
@@ -416,15 +446,6 @@ def capture(fn, inputs, device) -> Graph:
         torch.cuda.synchronize(dev)
         return Graph(g, inputs, outputs, pool, time.perf_counter() - t0,
                      guards)
-
-
-def _begin_allocate(index, pool_id) -> None:
-    # the thread filter (this thread's allocations on any stream) where
-    # the installed PyTorch has it, else every allocation: during a
-    # capture only this thread allocates on the card
-    begin = getattr(torch._C, "_cuda_beginAllocateCurrentThreadToPool",
-                    None) or torch._C._cuda_beginAllocateToPool
-    begin(index, pool_id)
 
 
 class _Cache:
@@ -461,6 +482,12 @@ def graph_stats() -> dict:
 def reset_graph_stats() -> None:
     _cache.captures = _cache.replays = 0
     _cache.capture_s = 0.0
+
+
+def cached(key, device) -> bool:
+    """Whether :func:`run` with ``key`` on the CUDA ``device`` replays a
+    cached graph (else it captures one).  For measurement scripts."""
+    return (key, torch.device(device)) in _cache.entries
 
 
 def _copy_into(dst, src) -> None:

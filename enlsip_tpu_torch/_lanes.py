@@ -121,23 +121,31 @@ def const(v, device, dtype=None):
     return torch.full((), v, dtype=dtype, device=device)
 
 
-def tree_where(pred, t, f):
+def tree_where(pred, t, f, _seen=None):
     """Per-lane select over two identically-structured nests of tensors
     (tuples, NamedTuples, ``None``); ``pred`` is a per-lane bool
     broadcast over each leaf's trailing axes.  A static leaf both sides
     share (an axis name, the very same mesh object of a row-sharded
-    factorization) is passed through."""
+    factorization) is passed through.  A pair of leaves that recurs (a
+    factorization that keeps the very matrix another field holds) is
+    selected once and the result shared, as the sides share it: a
+    second (m, n) copy would only cost memory."""
     if t is None:
         return None
+    seen = {} if _seen is None else _seen
     if isinstance(t, torch.Tensor) or isinstance(f, torch.Tensor):
-        t = const(t, pred.device)
-        f = const(f, pred.device)
-        nd = max(t.ndim, f.ndim) - pred.ndim
-        return torch.where(ex(pred, nd), t, f)
+        key = (id(t), id(f))
+        if key in seen:
+            return seen[key][2]
+        a, b = const(t, pred.device), const(f, pred.device)
+        nd = max(a.ndim, b.ndim) - pred.ndim
+        out = torch.where(ex(pred, nd), a, b)
+        seen[key] = (t, f, out)         # t, f held: their ids stay theirs
+        return out
     if isinstance(t, tuple):
         if t is f and not any(isinstance(a, torch.Tensor) for a in t):
             return t
-        vals = [tree_where(pred, a, b) for a, b in zip(t, f)]
+        vals = [tree_where(pred, a, b, seen) for a, b in zip(t, f)]
         return type(t)(*vals) if hasattr(t, "_fields") else tuple(vals)
     if isinstance(t, (bool, int, float)):
         return torch.where(pred, const(t, pred.device),

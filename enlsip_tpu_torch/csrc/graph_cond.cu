@@ -11,16 +11,28 @@
 // cg_begin
 //   1. creates a conditional handle in G,
 //   2. enqueues on `stream` a one-thread kernel that reads a 0-d flag
-//      (one byte, 0 or 1) from device memory and sets the handle,
+//      (one byte, 0 or 1) from device memory and sets the handle (with
+//      no flag, the handle takes the value 1 at every launch of the
+//      graph instead: the root body, which always runs),
 //   3. adds a conditional node (IF or WHILE, one body) to G after every
-//      node the capture has so far, and makes that node the capture's
-//      only dependency,
-//   4. starts capturing `child` (an idle stream) into the node's body.
+//      node the capture has so far,
+//   4. starts capturing `child` into the node's body.
 // The caller then enqueues the body's work on `child`; a WHILE body ends
 // with cg_set on `child`, which sets the handle again from the flag the
 // body recomputed (the loop runs again while it is 1).  cg_end ends the
-// child's capture.  Bodies nest: a body's own stream may itself be the
-// `stream` of a nested cg_begin.
+// child's capture.
+//
+// Bodies nest on ONE stream.  When `child` is `stream` itself (a body
+// inside a body), step 4 first ends the stream's capture into G, and
+// cg_end, after ending the body's capture, resumes the capture into G
+// with the new node as its only dependency.  So every body of a graph,
+// at every depth, is captured on the same stream, in the order the
+// graph runs it, and PyTorch's caching allocator, which hands a freed
+// block out again only on the stream it was freed on, reuses the blocks
+// of one body in the next (enlsip_tpu_torch/_graph.py says why that is
+// safe).  When `child` is another stream (the root body, under
+// PyTorch's own capture of the graph), the node becomes the capture's
+// only dependency and `stream` goes on capturing into G.
 //
 // The kernel that sets the handle is the only device code here: one
 // thread, one byte read.  Nothing is allocated and nothing waits.
@@ -54,25 +66,37 @@ cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
 
 }  // namespace
 
-// kind 0: IF, kind 1: WHILE.  `flag` is a device byte.  On success
-// *handle_out holds the node's handle (for cg_set) and `child` is
-// capturing the body.
+// kind 0: IF, kind 1: WHILE.  `flag` is a device byte, or null for a
+// handle that is 1 at every launch.  On success *handle_out holds the
+// node's handle (for cg_set) and `child` is capturing the body; when
+// `child` is `stream`, *graph_out and *node_out hold the graph whose
+// capture was suspended and the node after which cg_end resumes it
+// (both null otherwise).
 extern "C" int cg_begin(void* stream, void* child, int kind, const void* flag,
-                        unsigned long long* handle_out) {
+                        unsigned long long* handle_out, void** graph_out,
+                        void** node_out) {
   cudaStream_t st = (cudaStream_t)stream;
   cudaGraph_t graph;
   const cudaGraphNode_t* deps = nullptr;
   size_t ndeps = 0;
+  *graph_out = nullptr;
+  *node_out = nullptr;
   cudaError_t err = capture_info(st, &graph, &deps, &ndeps);
   if (err != cudaSuccess) return (int)err;
   cudaGraphConditionalHandle handle;
-  err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
-  if (err != cudaSuccess) return (int)err;
-  set_conditional<<<1, 1, 0, st>>>(handle, (const unsigned char*)flag);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  err = capture_info(st, &graph, &deps, &ndeps);
-  if (err != cudaSuccess) return (int)err;
+  if (flag == nullptr) {
+    err = cudaGraphConditionalHandleCreate(&handle, graph, 1,
+                                           cudaGraphCondAssignDefault);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    err = cudaGraphConditionalHandleCreate(&handle, graph, 0, 0);
+    if (err != cudaSuccess) return (int)err;
+    set_conditional<<<1, 1, 0, st>>>(handle, (const unsigned char*)flag);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    err = capture_info(st, &graph, &deps, &ndeps);
+    if (err != cudaSuccess) return (int)err;
+  }
 
   cudaGraphNodeParams params = {};
   params.type = cudaGraphNodeTypeConditional;
@@ -83,16 +107,26 @@ extern "C" int cg_begin(void* stream, void* child, int kind, const void* flag,
   cudaGraphNode_t node;
 #if CUDART_VERSION >= 13000
   err = cudaGraphAddNode(&node, graph, deps, nullptr, ndeps, &params);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaStreamUpdateCaptureDependencies(st, &node, nullptr, 1,
-                                            cudaStreamSetCaptureDependencies);
 #else
   err = cudaGraphAddNode(&node, graph, deps, ndeps, &params);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaStreamUpdateCaptureDependencies(st, &node, 1,
-                                            cudaStreamSetCaptureDependencies);
 #endif
   if (err != cudaSuccess) return (int)err;
+  if ((cudaStream_t)child == st) {
+    cudaGraph_t suspended;
+    err = cudaStreamEndCapture(st, &suspended);
+    if (err != cudaSuccess) return (int)err;
+    *graph_out = (void*)suspended;
+    *node_out = (void*)node;
+  } else {
+#if CUDART_VERSION >= 13000
+    err = cudaStreamUpdateCaptureDependencies(
+        st, &node, nullptr, 1, cudaStreamSetCaptureDependencies);
+#else
+    err = cudaStreamUpdateCaptureDependencies(
+        st, &node, 1, cudaStreamSetCaptureDependencies);
+#endif
+    if (err != cudaSuccess) return (int)err;
+  }
   err = cudaStreamBeginCaptureToGraph((cudaStream_t)child,
                                       params.conditional.phGraph_out[0],
                                       nullptr, nullptr, 0,
@@ -111,14 +145,16 @@ extern "C" int cg_set(void* stream, unsigned long long handle,
   return (int)cudaGetLastError();
 }
 
-// End the body's capture on `child`.  A body that captured nothing gets
-// one empty kernel: a conditional node's body may not be empty.
-extern "C" int cg_end(void* child) {
+// End the body's capture on `child`, then, when `graph` is not null,
+// resume capturing `child` into `graph` after `node` (cg_begin's
+// *graph_out and *node_out).  A body that captured nothing gets one empty
+// kernel: a conditional node's body may not be empty.
+extern "C" int cg_end(void* child, void* graph, void* node) {
   cudaStream_t st = (cudaStream_t)child;
-  cudaGraph_t graph;
+  cudaGraph_t body_graph;
   const cudaGraphNode_t* deps = nullptr;
   size_t ndeps = 0;
-  cudaError_t err = capture_info(st, &graph, &deps, &ndeps);
+  cudaError_t err = capture_info(st, &body_graph, &deps, &ndeps);
   if (err != cudaSuccess) return (int)err;
   if (ndeps == 0) {
     noop<<<1, 1, 0, st>>>();
@@ -127,7 +163,11 @@ extern "C" int cg_end(void* child) {
   }
   cudaGraph_t body;
   err = cudaStreamEndCapture(st, &body);
-  return (int)err;
+  if (err != cudaSuccess || graph == nullptr) return (int)err;
+  cudaGraphNode_t after = (cudaGraphNode_t)node;
+  return (int)cudaStreamBeginCaptureToGraph(st, (cudaGraph_t)graph, &after,
+                                            nullptr, 1,
+                                            cudaStreamCaptureModeThreadLocal);
 }
 
 extern "C" int cg_runtime_version() { return CUDART_VERSION; }

@@ -141,7 +141,9 @@ def thin_qr(M: torch.Tensor):
         V.diagonal(dim1=-2, dim2=-1).fill_(1.0)
         r = torch.triu(a[..., :n, :])
     T = _panel_T(V, tau, n)[..., 0, :, :]
-    q = -(V @ (T @ V[..., :n, :].transpose(-1, -2)))
+    # negated in place: -(V @ ...) would hold a second (m, n) buffer
+    q = V @ (T @ V[..., :n, :].transpose(-1, -2))
+    q.neg_()
     q.diagonal(dim1=-2, dim2=-1).add_(1.0)
     return q, r
 
