@@ -450,13 +450,22 @@ def pools_probe(et, core_solve, _graph):
 
 def profile_replays(replay):
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        for _ in range(2):
-            replay()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+    from enlsip_tpu_torch.utils import profiling
+    # spans off under the profiler too, so that the replays are those of
+    # the graph already captured (tracing is part of the graph's key; an
+    # older ``--tree`` has no spans)
+    enable = getattr(profiling, "enable", lambda flag: None)
+    enable(False)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            for _ in range(2):
+                replay()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        enable(None)
     rows = [(e.key, getattr(e, "device_time_total", 0.0) or
              getattr(e, "cuda_time_total", 0.0), e.count)
             for e in prof.key_averages()

@@ -2912,19 +2912,27 @@ def examples():
 
 
 def profile_solve(solve, kernel=None):
-    """One warm solve under torch.profiler: wall seconds, the sum of
+    """One warm solve under torch.profiler, with spans off (the warm
+    call's graph, replayed): wall seconds, the sum of
     device kernel time, the busy share, and the top kernels by name; with
     ``kernel``, also the time, calls and share of device time of the
     kernels whose name holds that string."""
     from torch.profiler import ProfilerActivity, profile
+    from enlsip_tpu_torch.utils import profiling
     solve()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        solve()
-        torch.cuda.synchronize()
-        wall = time.time() - t0
+    # spans off under the profiler too, so that the profiled call replays
+    # the warm call's graph (tracing is part of the graph's key)
+    profiling.enable(False)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            solve()
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        profiling.enable(None)
     rows = [(e.key, getattr(e, "device_time_total", 0.0) or
              getattr(e, "cuda_time_total", 0.0), e.count)
             for e in prof.key_averages()

@@ -119,6 +119,8 @@ def _library():
         lib.cg_set.restype = i
         lib.cg_end.argtypes = [ptr, ptr, ptr]
         lib.cg_end.restype = i
+        lib.cg_stamp.argtypes = [ptr, ptr, ctypes.c_ulonglong, i, ptr]
+        lib.cg_stamp.restype = i
         lib.cg_runtime_version.restype = i
         lib.cg_driver_version.restype = i
         lib.cg_error_string.argtypes = [i]
@@ -345,6 +347,62 @@ def reset_launches() -> None:
         slots.zero_()
 
 
+# ---------------------------------------------------------------- spans
+
+class _SpanRing:
+    """The ring the span stamps of ``utils/profiling.py`` write on each
+    device: ``CAPACITY`` events of 16 bytes (site and edge, payload,
+    ``%globaltimer`` ns) after a 16-byte head whose first word counts the
+    stamps taken (an event goes to slot count mod ``CAPACITY``).  Made
+    once, OUTSIDE every graph (a block allocated during a capture would
+    be reused by the graph's temporaries, see :class:`_GuardFlags`):
+    :func:`capture` makes it before a capture with tracing on, a graph
+    holds its address."""
+
+    CAPACITY = 1 << 20
+    rings: dict = {}
+
+
+def span_ring(device=None, make: bool = False):
+    """The span ring of the CUDA ``device`` (default: the current card),
+    made if ``make``, else ``None`` where it was never made."""
+    if not torch.cuda.is_available():
+        return None
+    dev = _card(device if device is not None else "cuda")
+    if dev not in _SpanRing.rings and make:
+        if capturing():
+            raise RuntimeError("a span ring cannot be made while a graph "
+                               "is captured: tracing was turned on inside "
+                               "the capture")
+        _SpanRing.rings[dev] = torch.zeros(
+            (_SpanRing.CAPACITY + 1, 2), dtype=torch.int64, device=dev)
+    return _SpanRing.rings.get(dev)
+
+
+def span_rings() -> list:
+    return list(_SpanRing.rings.values())
+
+
+def clear_span_rings() -> None:
+    for ring in _SpanRing.rings.values():
+        ring.zero_()
+
+
+def stamp(device, code: int, payload_ptr) -> None:
+    """Launch the span stamp ``code`` (2 site + edge) on the current
+    stream of the CUDA ``device``, reading its payload from the int at
+    ``payload_ptr`` (``None``: no payload) when it runs."""
+    ring = span_ring(device, make=True)
+    _check(_library().cg_stamp(
+        torch.cuda.current_stream(ring.device).cuda_stream, ring.data_ptr(),
+        _SpanRing.CAPACITY, code, payload_ptr), "launching a span stamp")
+
+
+def _tracing() -> bool:
+    from .utils import profiling
+    return profiling.enabled()
+
+
 # -------------------------------------------------------------- capture
 
 _SCRATCH = {}
@@ -416,6 +474,8 @@ def capture(fn, inputs, device) -> Graph:
     from .ops import cpqr_batched_hopper, cpqr_hopper, wy_hopper  # noqa: F401
     with torch.cuda.device(dev):
         warm_up(dev)
+        if _tracing():
+            span_ring(dev, make=True)
         t0 = time.perf_counter()
         g = torch.cuda.CUDAGraph()
         pool = torch.cuda.MemPool()
@@ -484,10 +544,16 @@ def reset_graph_stats() -> None:
     _cache.capture_s = 0.0
 
 
+def graph_key(key, device) -> tuple:
+    """The cache key of :func:`run` with ``key`` on ``device`` now: the
+    key, the device and whether tracing is on."""
+    return key, torch.device(device), _tracing()
+
+
 def cached(key, device) -> bool:
     """Whether :func:`run` with ``key`` on the CUDA ``device`` replays a
     cached graph (else it captures one).  For measurement scripts."""
-    return (key, torch.device(device)) in _cache.entries
+    return graph_key(key, device) in _cache.entries
 
 
 def _copy_into(dst, src) -> None:
@@ -508,22 +574,27 @@ def run(key, fn, inputs: tuple, device, warm=None):
 
     ``warm``: run eagerly before a capture (and before a rehearsal), so
     that what user closures create at their first call (constants moved
-    to the device) exists before the capture begins."""
+    to the device) exists before the capture begins; its spans are not
+    recorded.  Whether tracing is on (``utils.profiling.enabled``) is part
+    of the key: a graph captured with span stamps is never replayed for
+    a call without them, nor the reverse."""
+    from .utils.profiling import quiet
     dev = torch.device(device)
     if dev.type != "cuda":
         if warm is not None:
-            warm()
+            with quiet():
+                warm()
         with _mode("emulate"), forbid_readbacks():
             return fn(*inputs)
     if device_resident():
         raise RuntimeError("a device-resident solve cannot start another")
-    full_key = (key, dev)
+    full_key = graph_key(key, dev)
     entry = _cache.entries.get(full_key)
     if entry is None:
         static = pytree.tree_map(
             lambda a: a.clone() if isinstance(a, torch.Tensor) else a, inputs)
         if warm is not None:
-            with torch.cuda.device(dev):
+            with torch.cuda.device(dev), quiet():
                 warm()
         entry = capture(fn, static, dev)
         _cache.captures += 1

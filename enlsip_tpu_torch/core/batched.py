@@ -31,6 +31,7 @@ from .driver import (Functions, WorkingSetRound, _active_cx_sum,
                      _working_set_round)
 from .subproblem import hessian_contractions
 from .types import Carry, Dims, Options, Tols
+from ..utils.profiling import span
 
 
 def has_data(data) -> bool:
@@ -161,14 +162,16 @@ def batched_iterate_body(carry: Carry, lfns: Functions, dims: Dims,
 
     # WRKSET: round 1 always; F_L11 and the second-order deletion round
     # only when some live lane needs them
-    wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
-                             carry.index_del, dims, opts, tols, rdims,
-                             _stall_hint(carry, tols), lanes=alive)
+    with span("wrkset", x.device):
+        wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
+                                 carry.index_del, dims, opts, tols, rdims,
+                                 _stall_hint(carry, tols), lanes=alive)
     active_cx_sum = _active_cx_sum(wsr, cx, dims)
 
-    ana = batched_direction_analysis(
-        x, rx, cx, active_cx_sum, wsr, alive, carry.nb_iter, carry.prev,
-        carry.restart, dims, opts, rdims, hess)
+    with span("analys", x.device):
+        ana = batched_direction_analysis(
+            x, rx, cx, active_cx_sum, wsr, alive, carry.nb_iter, carry.prev,
+            carry.restart, dims, opts, rdims, hess)
 
     return _post_direction(carry, lfns, dims, opts, tols, wsr, ana,
                            active_cx_sum, rx_sum_start, cx_sum_start, rdims,

@@ -54,6 +54,7 @@ from .._dist import warm as warm_collectives
 from .._lanes import (cond, const, dot, ex, mtv, norm, take, take1,
                       tree_where, while_loop)
 from ..ops.qr import pseudo_rank
+from ..utils.profiling import span
 from .direction import search_direction_analysis
 from .linesearch import compute_steplength
 from .subproblem import (ActiveConstraint, FactorA, FactorL11, GNResult,
@@ -360,26 +361,27 @@ def init_carry(fns: Functions, x0, dims: Dims, opts: Options, dtype,
     ``x0`` (n,) seeds one solve; ``x0`` (B, n) with lane-mapped ``fns``
     seeds a batch (the count fields are then (B,) tensors, else 0-d)."""
     dev = resolve_device(device)
-    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
-    lead = tuple(x0.shape[:-1])
-    rx, J, cx, A, counters = new_point(fns, x0, Counters.zeros(lead, dev))
-    mask, w0, K = init_working_set(cx, A, x0, dims, rdims)
-    f = lambda v: torch.full(lead, v, dtype=dtype, device=dev)
-    i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
-    prev = PrevIter(
-        x=x0, rx_sum=rows_dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
-        t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1), w=w0,
-        progress=f(0.0), predicted_reduction=f(0.0),
-        rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
-    return Carry(
-        x=x0, rx=rx, cx=cx, J=J, A=A, gf=_grad_f(fns, J, rx),
-        active_mask=mask, w=w0, K=K, prev=prev,
-        restart=torch.zeros(lead, dtype=torch.bool, device=dev),
-        index_del=i(-1), nb_newton_steps=i(0), nb_iter=i(0),
-        exit_code=i(0), counters=counters,
-        display=torch.zeros((*lead, opts.max_iter + 1, 5), dtype=dtype,
-                            device=dev),
-        n_display=i(0))
+    with span("init", dev):
+        x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+        lead = tuple(x0.shape[:-1])
+        rx, J, cx, A, counters = new_point(fns, x0, Counters.zeros(lead, dev))
+        mask, w0, K = init_working_set(cx, A, x0, dims, rdims)
+        f = lambda v: torch.full(lead, v, dtype=dtype, device=dev)
+        i = lambda v: torch.full(lead, v, dtype=torch.int64, device=dev)
+        prev = PrevIter(
+            x=x0, rx_sum=rows_dot(rx, rx), cx_sum=_cx_sq_sum(cx, dims, rdims),
+            t=torch.sum(mask, dim=-1), alpha=f(1.0), beta=f(0.0), code=i(1),
+            w=w0, progress=f(0.0), predicted_reduction=f(0.0),
+            rankA=i(0), rankJ2=i(0), dimA=i(0), dimJ2=i(0))
+        return Carry(
+            x=x0, rx=rx, cx=cx, J=J, A=A, gf=_grad_f(fns, J, rx),
+            active_mask=mask, w=w0, K=K, prev=prev,
+            restart=torch.zeros(lead, dtype=torch.bool, device=dev),
+            index_del=i(-1), nb_newton_steps=i(0), nb_iter=i(0),
+            exit_code=i(0), counters=counters,
+            display=torch.zeros((*lead, opts.max_iter + 1, 5), dtype=dtype,
+                                device=dev),
+            n_display=i(0))
 
 
 def _stall_hint(carry: Carry, tols: Tols):
@@ -412,18 +414,20 @@ def iterate_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     # JQ1-write elision: safe exactly when the Newton branch (the only
     # true JQ1 reader) is off by option — see gn_search_direction.
     elide = jb is not None and not opts.second_derivatives
-    wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
-                             carry.index_del, dims, opts, tols, rdims,
-                             _stall_hint(carry, tols), jac_base=jb,
-                             elide_jq1=elide)
+    with span("wrkset", x.device):
+        wsr = _working_set_round(carry.active_mask, A, cx, rx, J, gf,
+                                 carry.index_del, dims, opts, tols, rdims,
+                                 _stall_hint(carry, tols), jac_base=jb,
+                                 elide_jq1=elide)
     active_cx_sum = _active_cx_sum(wsr, cx, dims)
 
     # --- ANALYS ----------------------------------------------------------
-    ana = search_direction_analysis(
-        fns.res, fns.cons, x, rx, cx, wsr.act, active_cx_sum, wsr.gn,
-        wsr.F_A, wsr.F_L11, wsr.view, wsr.t, wsr.lam, carry.nb_iter,
-        carry.prev, carry.restart, False, wsr.deleted, dims, opts.scaling,
-        opts.second_derivatives, rdims)
+    with span("analys", x.device):
+        ana = search_direction_analysis(
+            fns.res, fns.cons, x, rx, cx, wsr.act, active_cx_sum, wsr.gn,
+            wsr.F_A, wsr.F_L11, wsr.view, wsr.t, wsr.lam, carry.nb_iter,
+            carry.prev, carry.restart, False, wsr.deleted, dims,
+            opts.scaling, opts.second_derivatives, rdims)
     return _post_direction(carry, fns, dims, opts, tols, wsr, ana,
                            active_cx_sum, rx_sum_start, cx_sum_start, rdims)
 
@@ -453,13 +457,14 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
         res_trial = lambda xx, pp: (
             lambda a: fns.res(xx + ex(a.to(xx.dtype)) * pp))
     code = ana.code
-    sl = compute_steplength(
-        res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
-        ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
-        carry.prev, carry.K, wsr.mask, dims, opts.weight_code, counters,
-        opts.linesearch_max_refine, opts.gac_max_halvings,
-        opts.eucmod_max_passes, opts.scaling, lanes,
-        jac_base=_jac_base(fns))
+    with span("stplng", x.device):
+        sl = compute_steplength(
+            res_trial, fns.cons, x, rx, J, cx, A, wsr.act, wsr.view, t,
+            ana.p, ana.dimA, wsr.gn.rankJ2, code, wsr.index_del,
+            carry.prev, carry.K, wsr.mask, dims, opts.weight_code, counters,
+            opts.linesearch_max_refine, opts.gac_max_halvings,
+            opts.eucmod_max_passes, opts.scaling, lanes,
+            jac_base=_jac_base(fns))
     counters = sl.counters
 
     # --- step + new point --------------------------------------------
@@ -467,55 +472,59 @@ def _post_direction(carry: Carry, fns: Functions, dims: Dims, opts: Options,
     rx_new, J_new, cx_new, A_new, counters = new_point(fns, x_new, counters)
     gf_new = _grad_f(fns, J_new, rx_new)
     rx_sum_new = rows_dot(rx_new, rx_new)
-    restart_new = ana.error_code < 0
 
-    sigma_min, lam_abs_max = minmax_lagrangian_mult(
-        wsr.lam, wsr.act.valid, t, rdims_or(rdims, dims).q, opts.scaling,
-        wsr.act.diag_scale)
+    # --- TERCRI and the bookkeeping ----------------------------------
+    with span("tercri", x.device):
+        restart_new = ana.error_code < 0
 
-    # NOTE: the reference copies previous_iter BEFORE refreshing iter.x,
-    # so the prev_iter.x TERCRI reads in body k is the PREVIOUS body's
-    # starting point: x_diff spans TWO steps.  carry.prev.x holds exactly
-    # that point (and x0 in the first body).
-    exit_code = check_termination(
-        ana.p, ana.code, restart_new, wsr.deleted, ana.d, ana.dimJ2,
-        wsr.grad_res, wsr.act.cx_act, wsr.act.A_act, wsr.act.valid, t,
-        x_new, carry.prev.x, cx_new, wsr.mask, rx_sum_new, gf_new,
-        carry.nb_iter, opts.max_iter, tols, ana.error_code, sigma_min,
-        lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)
+        sigma_min, lam_abs_max = minmax_lagrangian_mult(
+            wsr.lam, wsr.act.valid, t, rdims_or(rdims, dims).q, opts.scaling,
+            wsr.act.diag_scale)
 
-    # --- bookkeeping: display, EVADD, prev snapshot -------------------
-    first = const(carry.nb_iter == 0, x.device)
-    record = first | (exit_code == 0)
-    upd = const(sl.updated_progress, x.device)
-    progress_out = torch.where(upd, sl.progress, carry.prev.progress)
-    predred_out = torch.where(upd, sl.predicted_reduction,
-                              carry.prev.predicted_reduction)
-    objective = torch.where(first, rx_sum_start, rx_sum_new)
-    row = torch.stack([objective, active_cx_sum, norm(ana.p), sl.alpha,
-                       progress_out], dim=-1)
-    mask_add, _added = evaluate_violated_constraints(
-        cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
-    display = carry.display
-    slot = torch.arange(display.shape[-2], device=x.device)
-    here = ex(record) & (slot == ex(carry.nb_iter))
-    display = torch.where(here[..., None], row[..., None, :], display)
-    mask_final = torch.where(ex(record), mask_add, wsr.mask)
+        # NOTE: the reference copies previous_iter BEFORE refreshing iter.x,
+        # so the prev_iter.x TERCRI reads in body k is the PREVIOUS body's
+        # starting point: x_diff spans TWO steps.  carry.prev.x holds exactly
+        # that point (and x0 in the first body).
+        exit_code = check_termination(
+            ana.p, ana.code, restart_new, wsr.deleted, ana.d, ana.dimJ2,
+            wsr.grad_res, wsr.act.cx_act, wsr.act.A_act, wsr.act.valid, t,
+            x_new, carry.prev.x, cx_new, wsr.mask, rx_sum_new, gf_new,
+            carry.nb_iter, opts.max_iter, tols, ana.error_code, sigma_min,
+            lam_abs_max, sl.psi_error, nb_newton, sl.w, act_idx, dims, rdims)
 
-    prev_new = PrevIter(
-        x=x, rx_sum=rx_sum_start, cx_sum=cx_sum_start, t=t, alpha=sl.alpha,
-        beta=ana.beta, code=ana.code, w=sl.w, progress=progress_out,
-        predicted_reduction=predred_out, rankA=wsr.gn.rankA,
-        rankJ2=wsr.gn.rankJ2, dimA=ana.dimA, dimJ2=ana.dimJ2)
+        # --- bookkeeping: display, EVADD, prev snapshot -------------------
+        first = const(carry.nb_iter == 0, x.device)
+        record = first | (exit_code == 0)
+        upd = const(sl.updated_progress, x.device)
+        progress_out = torch.where(upd, sl.progress, carry.prev.progress)
+        predred_out = torch.where(upd, sl.predicted_reduction,
+                                  carry.prev.predicted_reduction)
+        objective = torch.where(first, rx_sum_start, rx_sum_new)
+        row = torch.stack([objective, active_cx_sum, norm(ana.p), sl.alpha,
+                           progress_out], dim=-1)
+        mask_add, _added = evaluate_violated_constraints(
+            cx_new, wsr.mask, sl.index_alpha_upp, dims, rdims)
+        display = carry.display
+        slot = torch.arange(display.shape[-2], device=x.device)
+        here = ex(record) & (slot == ex(carry.nb_iter))
+        display = torch.where(here[..., None], row[..., None, :], display)
+        mask_final = torch.where(ex(record), mask_add, wsr.mask)
 
-    return Carry(
-        x=x_new, rx=rx_new, cx=cx_new, J=J_new, A=A_new, gf=gf_new,
-        active_mask=mask_final, w=sl.w, K=sl.K, prev=prev_new,
-        restart=restart_new, index_del=wsr.index_del,
-        nb_newton_steps=nb_newton,
-        nb_iter=carry.nb_iter + _count(record),
-        exit_code=exit_code, counters=counters, display=display,
-        n_display=carry.n_display + _count(record))
+        prev_new = PrevIter(
+            x=x, rx_sum=rx_sum_start, cx_sum=cx_sum_start, t=t,
+            alpha=sl.alpha, beta=ana.beta, code=ana.code, w=sl.w,
+            progress=progress_out, predicted_reduction=predred_out,
+            rankA=wsr.gn.rankA, rankJ2=wsr.gn.rankJ2, dimA=ana.dimA,
+            dimJ2=ana.dimJ2)
+
+        return Carry(
+            x=x_new, rx=rx_new, cx=cx_new, J=J_new, A=A_new, gf=gf_new,
+            active_mask=mask_final, w=sl.w, K=sl.K, prev=prev_new,
+            restart=restart_new, index_del=wsr.index_del,
+            nb_newton_steps=nb_newton,
+            nb_iter=carry.nb_iter + _count(record),
+            exit_code=exit_code, counters=counters, display=display,
+            n_display=carry.n_display + _count(record))
 
 
 def guarded_body(carry: Carry, fns: Functions, dims: Dims, opts: Options,
@@ -537,7 +546,8 @@ def run_chunk(carry: Carry, fns: Functions, dims: Dims, opts: Options,
         return (c.exit_code == 0) & (c.nb_iter - start < chunk)
 
     def body(c):
-        return iterate_body(c, fns, dims, opts, tols, rdims)
+        with span("iteration", c.x.device):
+            return iterate_body(c, fns, dims, opts, tols, rdims)
 
     return while_loop(go, body, carry)
 
@@ -553,11 +563,12 @@ def _pack_result(carry: Carry, f) -> torch.Tensor:
     crosses to the host in one transfer."""
     dt = f.dtype
     cnt = carry.counters
-    head = torch.stack([
-        carry.exit_code.to(dt), f, carry.nb_iter.to(dt),
-        carry.n_display.to(dt), cnt.nb_res.to(dt), cnt.nb_jacres.to(dt),
-        cnt.nb_cons.to(dt), cnt.nb_jaccons.to(dt)])
-    return torch.cat([head, carry.x, carry.display.reshape(-1)])
+    with span("pack", f.device):
+        head = torch.stack([
+            carry.exit_code.to(dt), f, carry.nb_iter.to(dt),
+            carry.n_display.to(dt), cnt.nb_res.to(dt), cnt.nb_jacres.to(dt),
+            cnt.nb_cons.to(dt), cnt.nb_jaccons.to(dt)])
+        return torch.cat([head, carry.x, carry.display.reshape(-1)])
 
 
 class SolveResult(NamedTuple):
@@ -575,15 +586,18 @@ def _unpack_result(flat: torch.Tensor, n: int,
                    start_time: float) -> SolveResult:
     """The result from a packed buffer: the host fields from ONE counted
     read-back of the buffer, x and the display as device tensors."""
-    head = to_host_list(flat[:_HEAD])
-    exit_code, f, n_iter, n_display = (int(head[0]), float(head[1]),
-                                       int(head[2]), int(head[3]))
-    counters = Counters(*(int(v) for v in head[4:8]))
-    return SolveResult(exit_code=exit_code, x=flat[_HEAD:_HEAD + n].clone(),
-                       f=f, n_iter=n_iter,
-                       display=flat[_HEAD + n:].reshape(-1, 5).clone(),
-                       n_display=n_display, counters=counters,
-                       solving_time=time.time() - start_time)
+    with span("readback"):
+        head = to_host_list(flat[:_HEAD])
+    with span("result"):
+        exit_code, f, n_iter, n_display = (int(head[0]), float(head[1]),
+                                           int(head[2]), int(head[3]))
+        counters = Counters(*(int(v) for v in head[4:8]))
+        return SolveResult(exit_code=exit_code,
+                           x=flat[_HEAD:_HEAD + n].clone(), f=f,
+                           n_iter=n_iter,
+                           display=flat[_HEAD + n:].reshape(-1, 5).clone(),
+                           n_display=n_display, counters=counters,
+                           solving_time=time.time() - start_time)
 
 
 def _warm(fns: Functions, x) -> None:
@@ -607,9 +621,10 @@ def _solve_full_graph(x0, tols: Tols, fns: Functions, dims: Dims,
     """Init, the whole loop and the packed result as ONE device program
     (JAX ``_solve_full_jit``): the returned buffer is the graph's."""
     def full(x0, tols):
-        carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
-        carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
-        return _pack_result(carry, rows_dot(carry.rx, carry.rx))
+        with span("solve", x0.device):
+            carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
+            carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
+            return _pack_result(carry, rows_dot(carry.rx, carry.rx))
 
     key = ("solve",) + _static_key(fns, dims, opts, dtype) + \
         _graph.shapes_key(x0)
@@ -624,9 +639,10 @@ def _solve_carry_graph(x0, tols: Tols, fns: Functions, dims: Dims,
     row scope the capture holds every collective of the contractions
     over the rows).  The returned buffers are the graph's."""
     def full(x0, tols):
-        carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
-        carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
-        return carry, torch.stack([carry.exit_code, carry.nb_iter])
+        with span("solve", x0.device):
+            carry = init_carry(fns, x0, dims, opts, dtype, device=x0.device)
+            carry = run_chunk(carry, fns, dims, opts, tols, opts.max_iter + 1)
+            return carry, torch.stack([carry.exit_code, carry.nb_iter])
 
     key = ("solve_carry",) + _static_key(fns, dims, opts, dtype) + \
         _graph.shapes_key(x0)
@@ -640,7 +656,8 @@ def _run_chunk_graph(carry: Carry, tols: Tols, chunk: torch.Tensor,
     ``_run_chunk_jit``): ``chunk`` is a device scalar, so one graph
     serves every chunk size.  Returns the graph's carry buffers."""
     def step(carry, tols, chunk):
-        return run_chunk(carry, fns, dims, opts, tols, chunk)
+        with span("solve", carry.x.device):
+            return run_chunk(carry, fns, dims, opts, tols, chunk)
 
     key = ("chunk",) + _static_key(fns, dims, opts, carry.x.dtype) + \
         _graph.shapes_key(carry)
@@ -677,19 +694,21 @@ def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
     if dtype is None:
         dtype = x0.dtype if isinstance(x0, torch.Tensor) else torch.float64
     start_time = time.time()
-    x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
-    tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
-                  for v in tols))
+    with span("prepare"):
+        x0 = torch.as_tensor(x0).to(device=dev, dtype=dtype)
+        tols = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
+                      for v in tols))
     unlimited = time_limit is None or time_limit == float("inf")
     with matmul_precision_scope(opts), _graph.linalg_scope(dev):
         if unlimited and on_iteration is None:
-            if graph:
-                flat = _solve_full_graph(x0, tols, fns, dims, opts, dtype)
-            else:
-                carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
-                carry = run_chunk(carry, fns, dims, opts, tols,
-                                  opts.max_iter + 1)
-                flat = _pack_result(carry, rows_dot(carry.rx, carry.rx))
+            with span("replay"):
+                if graph:
+                    flat = _solve_full_graph(x0, tols, fns, dims, opts, dtype)
+                else:
+                    carry = init_carry(fns, x0, dims, opts, dtype, device=dev)
+                    carry = run_chunk(carry, fns, dims, opts, tols,
+                                      opts.max_iter + 1)
+                    flat = _pack_result(carry, rows_dot(carry.rx, carry.rx))
             return _unpack_result(flat, dims.n, start_time)
         runner = _run_chunk_graph if graph else _run_chunk_eager
         limit = float("inf") if unlimited else time_limit
@@ -707,11 +726,13 @@ def solve(fns: Functions, x0, dims: Dims, opts: Options, tols: Tols,
                 chunk = max(1, min(opts.max_iter + 1,
                                    int(0.5 * remaining / per_iter)))
             t0 = time.time()
-            carry = runner(carry, tols,
-                           torch.full((), chunk, dtype=torch.int64,
-                                      device=dev), fns, dims, opts)
-            exit_code, nb_iter = to_host_list(
-                torch.stack([carry.exit_code, carry.nb_iter]))
+            with span("replay"):
+                carry = runner(carry, tols,
+                               torch.full((), chunk, dtype=torch.int64,
+                                          device=dev), fns, dims, opts)
+            with span("readback"):
+                exit_code, nb_iter = to_host_list(
+                    torch.stack([carry.exit_code, carry.nb_iter]))
             measured = (time.time() - t0) / max(nb_iter - done, 1)
             done = nb_iter
             per_iter = measured if per_iter is None else max(

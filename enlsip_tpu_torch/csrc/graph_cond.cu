@@ -34,8 +34,17 @@
 // PyTorch's own capture of the graph), the node becomes the capture's
 // only dependency and `stream` goes on capturing into G.
 //
-// The kernel that sets the handle is the only device code here: one
-// thread, one byte read.  Nothing is allocated and nothing waits.
+// The kernel that sets the handle is one thread and one byte read.
+// Nothing is allocated and nothing waits.
+//
+// Span stamps (enlsip_tpu_torch/utils/profiling.py).  cg_stamp enqueues a
+// one-thread kernel that takes the next slot of a ring in device memory
+// with a 64-bit atomicAdd on the ring's head (slot = count mod capacity)
+// and writes (site code, payload, %globaltimer ns) there.  Captured, it
+// runs where the replay reaches it, so a graph's spans are timed on the
+// card's clock; inside a conditional body it runs only when the body
+// runs.  The payload is an int read from device memory when the stamp
+// runs (a step count), or none.
 
 #include <cuda_runtime.h>
 
@@ -65,6 +74,22 @@ cudaError_t capture_info(cudaStream_t stream, cudaGraph_t* graph,
 }
 
 }  // namespace
+
+// ring: (1 + capacity) x 2 words; word 0 of row 0 counts the stamps taken,
+// row 1 + k holds event k: word 0 = site code (low 32 bits) and payload
+// (high 32 bits), word 1 = %globaltimer.
+extern "C" __global__ void enlsip_span_stamp(unsigned long long* ring,
+                                             unsigned long long capacity,
+                                             int code, const int* payload) {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  unsigned long long k = atomicAdd(ring, 1ULL) % capacity;
+  int p = payload != nullptr ? *payload : (int)0x80000000;
+  unsigned long long* e = ring + 2 * (1 + k);
+  e[0] = (unsigned long long)(unsigned int)code |
+         ((unsigned long long)(unsigned int)p << 32);
+  e[1] = t;
+}
 
 // kind 0: IF, kind 1: WHILE.  `flag` is a device byte, or null for a
 // handle that is 1 at every launch.  On success *handle_out holds the
@@ -168,6 +193,14 @@ extern "C" int cg_end(void* child, void* graph, void* node) {
   return (int)cudaStreamBeginCaptureToGraph(st, (cudaGraph_t)graph, &after,
                                             nullptr, 1,
                                             cudaStreamCaptureModeThreadLocal);
+}
+
+// One span stamp on `stream` (see the head of the file).
+extern "C" int cg_stamp(void* stream, void* ring, unsigned long long capacity,
+                        int code, const void* payload) {
+  enlsip_span_stamp<<<1, 1, 0, (cudaStream_t)stream>>>(
+      (unsigned long long*)ring, capacity, code, (const int*)payload);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int cg_runtime_version() { return CUDART_VERSION; }

@@ -24,6 +24,7 @@ import torch
 from .._device import resolve_device
 from ..core.driver import Functions, solve as core_solve
 from ..core.types import Dims, Options, Tols
+from ..utils.profiling import span
 
 # Status codes: convert_exit_code + dict_status_codes
 dict_status_codes = {
@@ -305,44 +306,55 @@ def solve(model: CnlsModel, *, silent: bool = True, max_iter: int = 100,
     "bfloat16" = faster tensor-core passes with fewer digits; None =
     inherit the process setting).
     """
-    dev = resolve_device(device)
-    eps = float(torch.finfo(dtype).eps)
-    abs_tol = eps if abs_tol is None else abs_tol
-    rel_tol = float(np.sqrt(abs_tol)) if rel_tol is None else rel_tol
-    c_tol = rel_tol if c_tol is None else c_tol
-    x_tol = rel_tol if x_tol is None else x_tol
-    eps_abs_internal = 1e-10
-
-    model.constraints_scaling = scaling
-    fns = _solve_functions(model, dtype, dev)
-
-    n, m, q = model.nb_parameters, model.nb_residuals, model.nb_eqcons
-    l = total_nb_constraints(model)
-    dims = Dims(n=n, m=m, q=q, l=l)
-    # Second derivatives force-disabled for n + m >= 1000, as in the
-    # reference.
-    second_derivatives = second_derivatives and (n + m < 1000)
-    opts = Options(scaling=scaling, second_derivatives=second_derivatives,
-                   weight_code=weight_code, max_iter=max_iter,
-                   matmul_precision=matmul_precision)
-    tols = Tols(*(torch.tensor(v, dtype=dtype, device=dev)
-                  for v in (eps_abs_internal, rel_tol, x_tol, c_tol,
-                            np.sqrt(eps))))
-    result = core_solve(fns, model.starting_point, dims, opts, tols,
-                        time_limit=time_limit, dtype=dtype, device=dev)
-
-    model.status_code = convert_exit_code(result.exit_code)
-    model.sol = _np(result.x)
-    model.obj_value = float(result.f)
-    c = result.counters
-    model.model_info = ExecutionInfo(
-        iterations_detail=_np(result.display)[:result.n_display],
-        nb_function_evaluations=c.nb_res + c.nb_cons,
-        nb_jacobian_evaluations=c.nb_jacres + c.nb_jaccons,
-        solving_time=result.solving_time)
+    with span("api.solve"):
+        _solve_model(model, max_iter, scaling, time_limit, abs_tol, rel_tol,
+                     c_tol, x_tol, dtype, device, weight_code,
+                     second_derivatives, matmul_precision)
     if not silent:
         print_cnls_model(model)
     return model
+
+
+def _solve_model(model: CnlsModel, max_iter, scaling, time_limit, abs_tol,
+                 rel_tol, c_tol, x_tol, dtype, device, weight_code,
+                 second_derivatives, matmul_precision) -> None:
+    with span("prepare"):
+        dev = resolve_device(device)
+        eps = float(torch.finfo(dtype).eps)
+        abs_tol = eps if abs_tol is None else abs_tol
+        rel_tol = float(np.sqrt(abs_tol)) if rel_tol is None else rel_tol
+        c_tol = rel_tol if c_tol is None else c_tol
+        x_tol = rel_tol if x_tol is None else x_tol
+        eps_abs_internal = 1e-10
+
+        model.constraints_scaling = scaling
+        fns = _solve_functions(model, dtype, dev)
+
+        n, m, q = model.nb_parameters, model.nb_residuals, model.nb_eqcons
+        l = total_nb_constraints(model)
+        dims = Dims(n=n, m=m, q=q, l=l)
+        # Second derivatives force-disabled for n + m >= 1000, as in the
+        # reference.
+        second_derivatives = second_derivatives and (n + m < 1000)
+        opts = Options(scaling=scaling, second_derivatives=second_derivatives,
+                       weight_code=weight_code, max_iter=max_iter,
+                       matmul_precision=matmul_precision)
+        tols = Tols(*(torch.tensor(v, dtype=dtype, device=dev)
+                      for v in (eps_abs_internal, rel_tol, x_tol, c_tol,
+                                np.sqrt(eps))))
+    result = core_solve(fns, model.starting_point, dims, opts, tols,
+                        time_limit=time_limit, dtype=dtype, device=dev)
+
+    with span("result"):
+        model.status_code = convert_exit_code(result.exit_code)
+        model.sol = _np(result.x)
+        model.obj_value = float(result.f)
+        c = result.counters
+        model.model_info = ExecutionInfo(
+            iterations_detail=_np(result.display)[:result.n_display],
+            nb_function_evaluations=c.nb_res + c.nb_cons,
+            nb_jacobian_evaluations=c.nb_jacres + c.nb_jaccons,
+            solving_time=result.solving_time)
 
 
 # ------------------------------------------------------------- printing

@@ -42,6 +42,7 @@ import torch
 
 from .._device import cpu_int, resolve_device
 from .._lanes import const, mtv, mv
+from ..utils.profiling import span
 
 # WY panel width for T/apply blocking.
 NB = 128
@@ -387,6 +388,14 @@ def batched_route(rows: int, cols: int, dtype, device_type: str) -> str:
     return "rank1"
 
 
+def _span(M: torch.Tensor, route: str, nsteps):
+    """The ``cpqr`` span of one factorization (``utils/profiling.py``):
+    its route, its shape, and a 0-d ``nsteps`` as its payload.  It holds
+    the factorization alone, not the unpack into R, V and T."""
+    return span("cpqr", M.device, nsteps, route=route, rows=M.shape[-2],
+                cols=M.shape[-1], lanes=M.shape[0] if M.ndim == 3 else 0)
+
+
 def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
                  device=None) -> CPQRF:
     """Column-pivoted QR of a fixed-shape buffer (zeroed invalid columns
@@ -410,7 +419,10 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
     Runs on ``device`` (default: the card; raises if there is none).
     Factorizations with min(rows, cols) >= 192 go to the fused Hopper
     kernel on a CUDA device and to the panel loop on the CPU; smaller
-    ones run the rank-1 loop on either."""
+    ones run the rank-1 loop on either.  Each factorization is a
+    ``cpqr`` span with its route: ``b2``, ``b1_lanes``, ``resident`` or
+    ``panels`` (B1's route, ``cpqr_hopper.b1_route``; the CPU panel
+    loop), ``rank1``."""
     M = torch.as_tensor(M).to(resolve_device(device))
     if M.ndim == 3:
         from .cpqr_batched_hopper import (cpqr_batched_packed,
@@ -418,27 +430,39 @@ def cpqr_blocked(M: torch.Tensor, nb: int = NB, nsteps=None, *,
                                           unpack_batched)
         route = batched_route(M.shape[1], M.shape[2], M.dtype, M.device.type)
         if route == "b2":
-            return unpack_batched(*cpqr_batched_packed(M))
+            with _span(M, route, nsteps):
+                packed = cpqr_batched_packed(M)
+            return unpack_batched(*packed)
         if route == "b1_lanes":
             from .cpqr_hopper import cpqr_hopper_lanes
             steps = min(M.shape[1:]) if nsteps is None else nsteps
-            return unpack_packed(*cpqr_hopper_lanes(M.contiguous(), steps),
-                                 nb=nb)
+            M = M.contiguous()
+            with _span(M, route, nsteps):
+                packed = cpqr_hopper_lanes(M, steps)
+            return unpack_packed(*packed, nb=nb)
         if route == "panels":
-            return _cpqr_xla_panels_lanes(M, nb, nsteps)
+            with _span(M, route, nsteps):
+                return _cpqr_xla_panels_lanes(M, nb, nsteps)
         if M.is_cuda:
             cpqr_blocked.cuda_rank1["lanes"] += 1
-        return unpack_batched(*cpqr_batched_packed_plain(M, nsteps))
+        with _span(M, route, nsteps):
+            packed = cpqr_batched_packed_plain(M, nsteps)
+        return unpack_batched(*packed)
     kmax = min(M.shape)
     if kmax >= LARGE_KMAX:
         if M.is_cuda:
-            from .cpqr_hopper import cpqr_hopper
+            from .cpqr_hopper import _route_of, cpqr_hopper
             steps = kmax if nsteps is None else nsteps
-            return unpack_packed(*cpqr_hopper(M.contiguous(), steps), nb=nb)
-        return _cpqr_xla_panels(M, nb, nsteps)
+            M = M.contiguous()
+            with _span(M, _route_of(M), nsteps):
+                packed = cpqr_hopper(M, steps)
+            return unpack_packed(*packed, nb=nb)
+        with _span(M, "panels", nsteps):
+            return _cpqr_xla_panels(M, nb, nsteps)
     if M.is_cuda:
         cpqr_blocked.cuda_rank1["single"] += 1
-    return _cpqr_xla(M, nb, nsteps)
+    with _span(M, "rank1", nsteps):
+        return _cpqr_xla(M, nb, nsteps)
 
 
 # Calls of the rank-1 routes on a CUDA tensor, the only ones in which the

@@ -49,6 +49,7 @@ from ..core.batched import (batched_guarded_body, has_data, lane_functions,
 from ..core.driver import Functions, init_carry
 from ..core.types import (Carry, Counters, Dims, Options, Tols,
                           matmul_precision_scope)
+from ..utils.profiling import span
 
 
 class BatchResult(NamedTuple):
@@ -128,12 +129,13 @@ def _batch_trips(carry: Carry, fns: Functions, dims: Dims, opts: Options,
 
     def step(st):
         c, trips = st
-        if mesh is not None:
-            c = cond(torch.any(c.exit_code == 0), lambda: bodies(c),
-                     lambda: c)
-        else:
-            c = bodies(c)
-        return c, trips + check_every
+        with span("trip", c.x.device):
+            if mesh is not None:
+                c = cond(torch.any(c.exit_code == 0), lambda: bodies(c),
+                         lambda: c)
+            else:
+                c = bodies(c)
+            return c, trips + check_every
 
     return while_loop(go, step, (carry, torch.zeros(
         (), dtype=torch.int64, device=carry.x.device)))
@@ -152,8 +154,9 @@ def _run_batch_chunk_graph(carry: Carry, tols: Tols, chunk: torch.Tensor,
     ``_run_batch_chunk_jit``; ``chunk`` is a device scalar, so one graph
     serves every chunk size).  Returns the graph's (carry, trips)."""
     def trips_fn(carry, tols, chunk, data, rdims):
-        return _batch_trips(carry, fns, dims, opts, tols, chunk, data, rdims,
-                            check_every, mesh)
+        with span("batch", carry.x.device):
+            return _batch_trips(carry, fns, dims, opts, tols, chunk, data,
+                                rdims, check_every, mesh)
 
     def warm():
         warm_collectives(mesh, carry.x.device)
@@ -369,14 +372,15 @@ def _solve_batched_graph(x0, tols: Tols, data, rdims, fns: Functions,
     graph's end).  Returns the graph's (BatchResult, head): ``head`` =
     [trips, exit codes...] int64, the one buffer read back."""
     def full(x0, tols, data, rdims):
-        carry = init_batch(fns, x0, dims, opts, dtype, data, rdims,
-                           device=x0.device)
-        carry, trips = _batch_trips(carry, fns, dims, opts, tols, cap, data,
-                                    rdims, check_every, mesh)
-        res = finalize(carry)
-        if gather is not None:
-            res = gather(res, mesh)
-        return res, torch.cat([trips[None], res.exit_code])
+        with span("batch", x0.device):
+            carry = init_batch(fns, x0, dims, opts, dtype, data, rdims,
+                               device=x0.device)
+            carry, trips = _batch_trips(carry, fns, dims, opts, tols, cap,
+                                        data, rdims, check_every, mesh)
+            res = finalize(carry)
+            if gather is not None:
+                res = gather(res, mesh)
+            return res, torch.cat([trips[None], res.exit_code])
 
     def warm():
         warm_collectives(mesh, x0.device)
@@ -429,19 +433,25 @@ def solve_batched(fns: Functions, x0_batch, dims: Dims, opts: Options,
     if time_limit is not None and time_limit == float("inf"):
         time_limit = None
     codes = None
-    with matmul_precision_scope(opts), _graph.linalg_scope(dev):
+    with span("api.solve_batched"), matmul_precision_scope(opts), \
+            _graph.linalg_scope(dev):
         if graph and time_limit is None:
-            x0 = torch.as_tensor(x0_batch).to(device=dev, dtype=dtype)
-            dd = _to_device(data, dev, dtype) if has_data(data) else None
-            tt = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
-                        for v in tols))
-            out, head = _solve_batched_graph(
-                x0, tt, dd, _lane_rdims(rdims, dev), fns, dims, opts, dtype,
-                opts.max_iter + 2)
-            res = pytree.tree_map(
-                lambda a: a.clone() if isinstance(a, torch.Tensor) else a,
-                out)
-            head = to_host_list(head)
+            with span("prepare"):
+                x0 = torch.as_tensor(x0_batch).to(device=dev, dtype=dtype)
+                dd = _to_device(data, dev, dtype) if has_data(data) else None
+                tt = Tols(*(torch.as_tensor(v).to(device=dev, dtype=dtype)
+                            for v in tols))
+                rd = _lane_rdims(rdims, dev)
+            with span("replay"):
+                out, head = _solve_batched_graph(
+                    x0, tt, dd, rd, fns, dims, opts, dtype,
+                    opts.max_iter + 2)
+            with span("result"):
+                res = pytree.tree_map(
+                    lambda a: a.clone() if isinstance(a, torch.Tensor)
+                    else a, out)
+            with span("readback"):
+                head = to_host_list(head)
             run_batch.last_trips, codes = head[0], head[1:]
         else:
             carry = init_batch(fns, x0_batch, dims, opts, dtype, data, rdims,

@@ -1,4 +1,5 @@
 from .checkpoint import load_carry, save_carry
-from .profiling import StageTimer, annotate, trace
+from .profiling import align, annotate, enable, enabled, span, spans, trace
 
-__all__ = ["save_carry", "load_carry", "StageTimer", "annotate", "trace"]
+__all__ = ["save_carry", "load_carry", "span", "annotate", "enable",
+           "enabled", "spans", "align", "trace"]

@@ -14,7 +14,8 @@
   unsharded).
 * ``guarded_functions`` names the function that returned a non-finite
   value, in a single solve and in a batch; ``first_nonfinite_report``.
-* ``StageTimer`` counts; ``annotate`` and ``trace`` run on the CPU.
+* ``annotate`` (a host span) and ``trace`` run on the CPU: the trace and
+  its ``spans.json`` are written, the span is a ``record_function`` range.
 JAX compiles: the batched init and the batched chunk of HS65.
 """
 
@@ -39,8 +40,10 @@ from enlsip_tpu_torch.parallel import (finalize, fuse_families,
                                        hs_scenario_batch, init_batch,
                                        run_batch, solve_batched)
 from enlsip_tpu_torch.problems.classic import HS65
-from enlsip_tpu_torch.utils import (StageTimer, annotate, load_carry,
-                                    save_carry, trace)
+import json
+
+from enlsip_tpu_torch.utils import (annotate, load_carry, profiling,
+                                   save_carry, trace)
 from enlsip_tpu_torch.utils.debug import (first_nonfinite_report,
                                           guarded_functions)
 
@@ -276,19 +279,28 @@ def test_first_nonfinite_report():
 # --------------------------------------------------------- profiling
 
 def test_stage_timer_annotate_and_trace(hs65, tmp_path):
+    """A host span (``annotate``) around two batches under ``trace``: a
+    ``record_function`` range in the trace, two records in
+    ``spans.json`` (tracing is on while the profiler is open), each
+    holding its batch's rehearsed ``batch`` span."""
     tf, starts = hs65[1], hs65[2]
-    timer = StageTimer()
     with trace(str(tmp_path / "prof")) as prof:
         for _ in range(2):
-            with timer.stage("solve"), annotate("enlsip_solve"):
-                res = solve_batched(tf, starts, DIMS, Options(max_iter=3),
-                                    TOLS, dtype=F64, device="cpu")
-        with timer.stage("sum", result=res.f):
-            float(res.f.sum())
-    assert timer.counts == {"solve": 2, "sum": 1}
-    assert timer.totals["solve"] > 0 and "solve" in timer.report()
+            with annotate("enlsip_solve"):
+                solve_batched(tf, starts, DIMS, Options(max_iter=3), TOLS,
+                              dtype=F64, device="cpu")
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
     assert any(e.key == "enlsip_solve" for e in prof.key_averages())
+    got = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    assert got["align"] is None         # no card: no stamp to pair
+    recs = got["spans"]
+    outer = [i for i, r in enumerate(recs) if r["name"] == "enlsip_solve"]
+    assert len(outer) == 2
+    for i in outer:
+        assert recs[i]["end_ns"] > recs[i]["start_ns"]
+        batch = [r for r in recs if r["name"] == "batch"
+                 and r["call"] == recs[i]["call"]]
+        assert len(batch) == 1
 
 
 @pytest.mark.gpu
@@ -296,8 +308,9 @@ def test_utils_on_the_card(tmp_path):
     """Needs the card and nvcc (run with ``pytest -m gpu``): a guarded
     fused batch on the card names the function that returned NaN, a
     finite one equals the unguarded solve; ``trace`` records the card's
-    kernels and an ``annotate`` range; ``StageTimer`` waits for a result
-    on the card; a batch carry round-trips on the card."""
+    kernels and an ``annotate`` range, and ``spans.json`` the batches'
+    spans stamped on the card, its clock put on the trace's by every
+    stamp; a batch carry round-trips on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the batched kernel has no CPU mode")
     fams = hs_scenario_batch(["hs14", "hs65"], per_family=4, seed=0)
@@ -307,17 +320,38 @@ def test_utils_on_the_card(tmp_path):
     solve = lambda fns: solve_batched(fns, fs.x0, fs.dims, opts, tols,
                                       dtype=f32, data=fs.data,
                                       rdims=fs.rdims)
-    timer = StageTimer()
     with trace(str(tmp_path / "prof")) as prof:
-        with timer.stage("plain"), annotate("enlsip_fused"):
+        with annotate("enlsip_fused"):
             plain = solve(fs.fns)
         guarded = solve(guarded_functions(fs.fns))
     assert torch.equal(plain.x, guarded.x)
-    assert any(e.key == "enlsip_fused" for e in prof.key_averages())
-    assert any("cpqr_batched_kernel" in e.key for e in prof.key_averages())
-    with timer.stage("sum", result=plain.f):
-        total = plain.f.sum()
-    assert torch.isfinite(total) and timer.counts["sum"] == 1
+    keys = [e.key for e in prof.key_averages()]
+    assert "enlsip_fused" in keys
+    assert any("cpqr_batched_kernel" in k for k in keys)
+    assert any("enlsip_span_stamp" in k for k in keys)
+    got = json.loads((tmp_path / "prof" / "spans.json").read_text())
+    # every stamp of the trace paired with the card's.  The two clocks
+    # drift apart (10-90 ppm measured on an H100), so the offset's spread
+    # grows with the time traced, here two captures long; each pair
+    # agrees with the one before it within 1 us + 200 ppm of the time
+    # between them, which a stamp paired with the wrong one does not.
+    kernels = [(e.name(), e.start_ns() * 1e-3, e.end_ns() * 1e-3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() != torch.autograd.DeviceType.CPU]
+    found = profiling.align(kernels)
+    stamps = sum(profiling.STAMP_KERNEL in name for name, _, _ in kernels)
+    assert got["align"] is not None and found is not None
+    assert got["align"]["stamps"] == found.stamps == stamps > 0
+    worst = max((abs((s1 - s0) - (t1 - t0)) - 2e-4 * (t1 - t0), t1 - t0, i)
+                for i, ((t0, s0), (t1, s1))
+                in enumerate(zip(found.pairs, found.pairs[1:])))
+    assert worst[0] <= 1.0, (worst, got["align"])
+    batches = [r for r in got["spans"] if r["name"] == "batch"]
+    assert len(batches) == 2 and all(r["clock"] == "device"
+                                     for r in batches)
+    assert any(r["name"] == "cpqr" and r["attrs"]["route"] == "b2"
+               for r in got["spans"])
+    assert torch.isfinite(plain.f.sum())
     bad = _poisoned(fs.fns, "cons")
     with pytest.raises(FloatingPointError, match="constraints"):
         solve(guarded_functions(bad))
