@@ -20,10 +20,12 @@
 // Bound.  A step reads the stale trailing block once (B^T v), a few
 // vectors and the panel's reflectors (from L2); the panel's update does
 // 2 NB flops an element of the trailing block.  At cr5000's A_act^T
-// (5000 x 4998) the reads come to about 1.7e11 bytes at float32, ~50 ms
-// over the HBM rate, less once the trailing block fits the 50 MB L2; and
-// every step is a chain of card-wide dependencies (pivot -> reflector ->
-// F column -> downdated norms), so the latency of a step adds to that.
+// (5000 x 4998) the reads come to about 3.3e11 bytes at float64 (1.7e11
+// at float32); 2.9e11 of them fall in the steps whose trailing block
+// exceeds the 50 MB L2, ~87 ms at the HBM rate, fewer where a step reads
+// first what the step before read last; and every step is a chain of
+// card-wide dependencies (pivot -> reflector -> F column -> downdated
+// norms), so the latency of a step adds to that.
 //
 // Design: one persistent cooperative launch of at most one block an SM.
 //   * Ownership.  Block b owns columns b, b + G, b + 2G, ... for the
@@ -44,13 +46,25 @@
 //           with each slice's sum of squares;
 //       B3  every block has summed the slices into the reflector (the same
 //           arithmetic in every block, so the same bits), written the
-//           tails, staged v in shared memory, formed Vp^T v in 512-row
-//           partials over the grid's warps and its live columns' W^T v,
-//           tasks of (column, 8 16-byte loads a lane) spread over its
-//           warps, a column's partials added in row order.
-//     After B3 each block sums those partials, forms F[:, j], row k of the
-//     updated matrix and the downdated norms of its own columns; the next
-//     step's candidates follow without a barrier.
+//           tails, staged v in shared memory (the whole of v up to 48 KB,
+//           else by chunks), formed Vp^T v in 512-row partials over the
+//           grid's warps, and its share of W^T v: one stream of tasks
+//           (live column, segment of 8 16-byte loads a lane) dealt round
+//           robin to all the grid's warps, whichever block owns the
+//           column, so that every SM streams the same bytes however the
+//           pivots took the columns.  Every block keeps the chosen
+//           columns as a bitmap (it knows each step's pivot) and, at each
+//           panel's start, the list of live columns, so every block deals
+//           the same tasks.  A warp loads its next task while it sums the
+//           current one; the list is walked forward on even steps and
+//           backward on odd ones, and all but the last 16 MB a step reads
+//           are loaded with L2 priority evict_first, so that what a step
+//           read last, the next reads first, from the L2; each partial
+//           goes to its slot (column, segment) in global memory.
+//     After B3 each block adds its own columns' partials in segment order,
+//     forms F[:, j], row k of the updated matrix and the downdated norms
+//     of its own columns; the next step's candidates follow without a
+//     barrier.
 //   * Panel end: every block applies Vp F^T to its live columns and to the
 //     rows above the diagonal of the columns chosen in the panel, from
 //     tiles of Vp staged in shared memory, and sums the next
@@ -64,14 +78,16 @@
 // order that does not depend on the block count: a sum over rows by one
 // warp, lane i taking the rows (or 16-byte vectors) equal to i mod 32 in
 // increasing order, then a butterfly; longer sums by fixed row slices,
-// added in slice order; bcol's sums over reflectors by fixed residues
+// added in slice order (W^T v's segments from row k & ~127, whichever
+// warp summed each); bcol's sums over reflectors by fixed residues
 // mod 16, added in warp order.  Two launches give the same bits, and so
 // do two block counts.
 //
 // Measured (chip_panels_phases.py and chip_smoke.py's b1_panels on an
-// H100, PERF.md): the W^T v sweep takes about twice its bytes' time at
-// the HBM and L2 rates, and the rest of a step, about 25 us at cr5000,
-// is the latency of its barriers and dependent loads.
+// H100, PERF.md): at cr5000's A_act^T in float64 the W^T v sweep and its
+// barrier take ~98 ms of a ~220 ms launch, 3.4 TB/s over its 3.4e11
+// bytes (the L2 serving part of them); the rest of a step, about 25 us,
+// is the latency of its barriers and dependent loads and the panel ends.
 //
 // Precision.  Full precision of the type, float32 or float64, as in the
 // resident route: no TF32 and no bfloat16.  Options.matmul_precision does
@@ -92,25 +108,21 @@ constexpr int kPanWarps = kPanThreads / 32;
 constexpr int kW2Chunk = 512;                    // rows of a Vp^T v partial
 constexpr int kMaxNB = 128;                      // panel width at most
 constexpr int kTile = 64;                        // transposition tile
-constexpr int kStageBytes = 8 * kTile * (kTile + 1);   // the stage
+constexpr int kStageBytes = 8 * kTile * (kTile + 1);   // the stage at least
+constexpr int kVBytes = 48 * 1024;               // v staged at once, at most
 constexpr int kMaxQ = 8;                         // own columns of a warp
 constexpr int kSegVec = 8;                       // vectors a lane, W^T v task
-constexpr int kMaxSeg = 8;                       // W^T v tasks a column, chunk
-// values of type T the stage holds, and rows of v staged at once (a
-// multiple of 128: 8192 at float32, 4096 at float64)
+constexpr int kSegBytes = kSegVec * 32 * 16;     // a W^T v task's bytes
+// W^T v's tasks read last in a step (16 MB), which the L2 keeps for the
+// next step to read first: the others are loaded with L2 priority
+// evict_first (on an H100, 16-20 MB kept came out best; 4 and 40 worse)
+constexpr int kKeepTasks = (16 << 20) / kSegBytes;
+// values of type T the stage holds at least
 template <typename T>
 __host__ __device__ constexpr int stage_len() { return kStageBytes / sizeof(T); }
-template <typename T>
-__host__ __device__ constexpr int vchunk_rows() {
-  return stage_len<T>() / 128 * 128 < kMaxSeg * kSegVec * 32 * (16 / (int)sizeof(T))
-             ? stage_len<T>() / 128 * 128
-             : kMaxSeg * kSegVec * 32 * (16 / (int)sizeof(T));
-}
 static_assert(32 * (kMaxNB + 1) <= stage_len<double>() &&
               kPanThreads <= stage_len<double>(), "stage too small");
-static_assert(vchunk_rows<float>() <= kMaxSeg * kSegVec * 32 * 4 &&
-              vchunk_rows<double>() <= kMaxSeg * kSegVec * 32 * 2,
-              "too few segments");
+static_assert(kVBytes % kSegBytes == 0, "v is staged by whole segments");
 
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -122,6 +134,15 @@ template <typename T> struct Vec16;
 template <> struct Vec16<float> {
   using type = float4;
   static constexpr int n = 4;
+  // a 16-byte load past L1 with an L2 eviction policy
+  static __device__ __forceinline__ float4 load(const float4* p,
+                                                unsigned long long pol) {
+    float4 r;
+    asm volatile("ld.global.cg.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+                 : "=f"(r.x), "=f"(r.y), "=f"(r.z), "=f"(r.w)
+                 : "l"(p), "l"(pol));
+    return r;
+  }
   static __device__ __forceinline__ float dot(float4 a, float4 b, float acc) {
     acc += a.x * b.x; acc += a.y * b.y; acc += a.z * b.z; acc += a.w * b.w;
     return acc;
@@ -130,6 +151,14 @@ template <> struct Vec16<float> {
 template <> struct Vec16<double> {
   using type = double2;
   static constexpr int n = 2;
+  static __device__ __forceinline__ double2 load(const double2* p,
+                                                 unsigned long long pol) {
+    double2 r;
+    asm volatile("ld.global.cg.L2::cache_hint.v2.f64 {%0, %1}, [%2], %3;"
+                 : "=d"(r.x), "=d"(r.y)
+                 : "l"(p), "l"(pol));
+    return r;
+  }
   static __device__ __forceinline__ double dot(double2 a, double2 b, double acc) {
     acc += a.x * b.x; acc += a.y * b.y;
     return acc;
@@ -166,12 +195,37 @@ __host__ __device__ inline size_t align256(size_t x) {
 // Rows of a column of the working matrix W: rows rounded up to 4.
 __host__ __device__ inline int padded_rows(int rows) { return (rows + 3) & ~3; }
 
+// Rows of a W^T v task, a segment (512 at float64, 1,024 at float32), and
+// segments of a column of W.
+__host__ __device__ inline int seg_rows(size_t itemsize) {
+  return kSegBytes / (int)itemsize;
+}
+__host__ __device__ inline int seg_count(int rows, size_t itemsize) {
+  return (padded_rows(rows) + seg_rows(itemsize) - 1) / seg_rows(itemsize);
+}
+
+// Rows of v staged in shared memory at once: the whole of v where it takes
+// at most kVBytes, else kVBytes' worth of whole segments.
+__host__ __device__ inline int v_rows(int rows, size_t itemsize) {
+  const int whole = seg_count(rows, itemsize) * seg_rows(itemsize);
+  const int most = kVBytes / (int)itemsize;
+  return whole < most ? whole : most;
+}
+
+// The stage: transposition tiles, bcol's partial sums, v, the panel end's
+// tiles of Vp (16-byte multiple).
+__host__ __device__ inline size_t stage_bytes(int rows, size_t itemsize) {
+  const size_t v = (size_t)v_rows(rows, itemsize) * itemsize;
+  return v > (size_t)kStageBytes ? v : (size_t)kStageBytes;
+}
+
 // Byte offsets of the scratch buffer's parts (one allocation the wrapper
 // makes): the working matrix W (cols, padded rows), bcol (rows), the
-// 32-row sums of squares, the Vp^T v partials (512-row slices x nb), and
-// the blocks' pivot candidates (value, F row, position, column).
+// 32-row sums of squares, the Vp^T v partials (512-row slices x nb), the
+// W^T v partials (cols x segments), and the blocks' pivot candidates
+// (value, F row, position, column).
 struct PanelLayout {
-  size_t W, bcol, sumsq, w2part, cval, cF, cpos, ccol, total;
+  size_t W, bcol, sumsq, w2part, w1part, cval, cF, cpos, ccol, total;
 };
 
 __host__ __device__ inline PanelLayout panel_layout(int rows, int cols,
@@ -187,6 +241,8 @@ __host__ __device__ inline PanelLayout panel_layout(int rows, int cols,
   o = align256(o + (size_t)((rows + 31) / 32) * itemsize);
   L.w2part = o;
   o = align256(o + (size_t)((rows + kW2Chunk - 1) / kW2Chunk) * nb * itemsize);
+  L.w1part = o;
+  o = align256(o + (size_t)cols * seg_count(rows, itemsize) * itemsize);
   L.cval = o;
   o = align256(o + (size_t)blocks * itemsize);
   L.cF = o;
@@ -199,16 +255,18 @@ __host__ __device__ inline PanelLayout panel_layout(int rows, int cols,
   return L;
 }
 
-// Dynamic shared memory of a block: the stage, the F rows, norms, W^T v,
-// row k and W^T v partials of its columns, four panel-width vectors, its
-// columns' positions and its live columns.
+// Dynamic shared memory of a block: the stage, the F rows, norms, W^T v
+// and row k of its columns, four panel-width vectors, its columns'
+// positions, and, the same in every block, the chosen columns (one bit a
+// column) and the panel's list of live columns (16-bit indices).
 __host__ __device__ inline size_t panels_shared_bytes(int rows, int cols,
                                                       int blocks, int nb,
                                                       size_t itemsize) {
-  (void)rows;
   const size_t nloc = (size_t)(cols + blocks - 1) / blocks;
-  return kStageBytes + (nloc * (nb + 3 + kMaxSeg) + 4 * (size_t)nb) * itemsize +
-         2 * nloc * sizeof(int);
+  return stage_bytes(rows, itemsize) +
+         (nloc * (nb + 3) + 4 * (size_t)nb) * itemsize + nloc * sizeof(int) +
+         (size_t)((cols + 31) / 32) * sizeof(unsigned) +
+         (size_t)cols * sizeof(unsigned short);
 }
 
 template <typename T>
@@ -219,6 +277,7 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
             int nb) {
   using V = typename Vec16<T>::type;
   constexpr int VN = Vec16<T>::n;
+  constexpr int kSeg = kSegVec * 32 * VN;        // rows of a W^T v task
   const int nsteps = step_count(nsteps_p, rows, cols);
   const int G = gridDim.x, b = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -228,21 +287,26 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
   const int ldw = padded_rows(rows);
   const int nchunk32 = (rows + 31) / 32;
   const int nchunkW = (rows + kW2Chunk - 1) / kW2Chunk;
+  const int nwd = (cols + 31) / 32;              // words of the bitmap
+  const int nsegw = seg_count(rows, sizeof(T));  // W^T v partials a column
+  const int vrows = v_rows(rows, sizeof(T));     // rows of v staged at once
 
   const PanelLayout L = panel_layout(rows, cols, G, nb, sizeof(T));
   T* W = reinterpret_cast<T*>(scratch + L.W);
   T* bcol = reinterpret_cast<T*>(scratch + L.bcol);
   T* sumsq = reinterpret_cast<T*>(scratch + L.sumsq);
   T* w2part = reinterpret_cast<T*>(scratch + L.w2part);
+  T* w1part = reinterpret_cast<T*>(scratch + L.w1part);
   T* cval = reinterpret_cast<T*>(scratch + L.cval);
   T* cF = reinterpret_cast<T*>(scratch + L.cF);
   int* cpos = reinterpret_cast<int*>(scratch + L.cpos);
   int* ccol = reinterpret_cast<int*>(scratch + L.ccol);
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr int kStageT = stage_len<T>(), kVChunk = vchunk_rows<T>();
-  T* stage = reinterpret_cast<T*>(smem_raw);     // (kStageT,), 16-byte aligned
-  T* F = stage + kStageT;                        // (nlocmax, nb)
+  constexpr int kStageT = stage_len<T>();       // the stage's least length
+  T* stage = reinterpret_cast<T*>(smem_raw);     // 16-byte aligned
+  T* F = reinterpret_cast<T*>(smem_raw + stage_bytes(rows, sizeof(T)));
+                                                 // (nlocmax, nb)
   T* nrm = F + (size_t)nlocmax * nb;             // (nlocmax,)
   T* w1s = nrm + nlocmax;                        // (nlocmax,) W^T v
   T* wks = w1s + nlocmax;                        // (nlocmax,) row k of W
@@ -250,9 +314,10 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
   T* w2s = Fc + nb;                              // (nb,) Vp^T v
   T* vpk = w2s + nb;                             // (nb,) row k of Vp
   T* unitp = vpk + nb;                           // (nb,) Vp's unit diagonal
-  T* w1part = unitp + nb;                        // (nlocmax, kMaxSeg)
-  int* lpos = reinterpret_cast<int*>(w1part + (size_t)nlocmax * kMaxSeg);
-  int* llive = lpos + nlocmax;                   // (nlocmax,) live columns
+  int* lpos = reinterpret_cast<int*>(unitp + nb);  // (nlocmax,)
+  unsigned* chosen = reinterpret_cast<unsigned*>(lpos + nlocmax);  // (nwd,)
+  unsigned short* live = reinterpret_cast<unsigned short*>(chosen + nwd);
+                                                 // (cols,) the panel's list
   __shared__ int s_nlive;
   __shared__ T s_tau, s_den, s_unit, s_diag;
   __shared__ int s_piv, s_col, s_blk;
@@ -305,6 +370,9 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
     }
   }
   for (int l = tid; l < nloc; l += kPanThreads) lpos[l] = b + l * G;
+  // the bits past the last column count as chosen
+  for (int w = tid; w < nwd; w += kPanThreads)
+    chosen[w] = (w == nwd - 1 && (cols & 31)) ? ~((1u << (cols & 31)) - 1u) : 0u;
   for (int e = tid; e < nlocmax * nb; e += kPanThreads) F[e] = T(0);
   grid_sync();
   // exact norms at the first panel's start, one warp a column
@@ -324,6 +392,35 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
 
   for (int s = 0; s < nsteps; s += nb) {
     const int jn = min(nb, nsteps - s);
+    // ---- the panel's list of live columns, in column order, from the
+    // bitmap every block keeps alike: W^T v's tasks until the panel ends
+    // (a column chosen inside the panel is skipped by its bit)
+    {
+      int* wbase = reinterpret_cast<int*>(stage);   // (nwd,) first entries
+      if (warp == 0) {
+        int n = 0;
+        for (int w0 = 0; w0 < nwd; w0 += 32) {
+          const int w = w0 + lane;
+          const int cnt = w < nwd ? __popc(~chosen[w]) : 0;
+          int inc = cnt;
+          for (int o = 1; o < 32; o <<= 1) {
+            const int y = __shfl_up_sync(0xffffffffu, inc, o);
+            if (lane >= o) inc += y;
+          }
+          if (w < nwd) wbase[w] = n + inc - cnt;
+          n += __shfl_sync(0xffffffffu, inc, 31);
+        }
+        if (lane == 0) s_nlive = n;
+      }
+      __syncthreads();
+      for (int w = tid; w < nwd; w += kPanThreads) {
+        unsigned bits = ~chosen[w];
+        for (int e = wbase[w]; bits; bits &= bits - 1u, ++e)
+          live[e] = (unsigned short)(w * 32 + __ffs(bits) - 1);
+      }
+      __syncthreads();
+    }
+    const int nlive = s_nlive;
     for (int j = 0; j < jn; ++j) {
       const int k = s + j;
 
@@ -424,6 +521,7 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
       }
       for (int q = tid; q < j; q += kPanThreads)
         Fc[q] = __ldcg(cF + (size_t)wb * nb + q);
+      if (tid == 0) chosen[c >> 5] |= 1u << (c & 31);
       __syncthreads();
       PHASE(2);
 
@@ -496,8 +594,9 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
           out[(size_t)k * rows + i] = __ldcg(bcol + i) / denom;
       }
       // v staged in shared memory, rows [vr0, vr1) first (the whole of v
-      // below kVChunk rows)
+      // where it takes at most kVBytes)
       const int vr0 = k & ~127;
+      const int nsg = (ldw - vr0 + kSeg - 1) / kSeg;   // W^T v's segments
       auto stage_v = [&](int r0, int r1) {
         __syncthreads();
         for (int i = r0 + tid; i < r1; i += kPanThreads)
@@ -506,7 +605,7 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
                               : (i == k ? unit : __ldcg(bcol + i) / denom);
         __syncthreads();
       };
-      int vr1 = min(ldw, vr0 + kVChunk);
+      const int vr1 = min(ldw, vr0 + vrows);
       stage_v(vr0, vr1);
       // Vp^T v in 512-row partials, one warp a (slice, column of Vp)
       if (j > 0) {
@@ -530,58 +629,91 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
         }
       }
       PHASE(6);
-      // W^T v of this block's live columns: v staged in shared memory by
-      // chunks; in a chunk, tasks of (live column, segment of kSegVec
-      // vectors a lane) spread over the warps; a column's segments added
-      // in row order
-      if (warp == 0) {
-        int n = 0;
-        for (int base = 0; base < nloc; base += 32) {
-          const int l = base + lane;
-          const bool is_live = l < nloc && lpos[l] > k;
-          const unsigned mask = __ballot_sync(0xffffffffu, is_live);
-          if (is_live) llive[n + __popc(mask & ((1u << lane) - 1))] = l;
-          n += __popc(mask);
-        }
-        if (lane == 0) s_nlive = n;
-      }
-      for (int l = tid; l < nloc; l += kPanThreads) w1s[l] = T(0);
-      constexpr int kSeg = kSegVec * 32 * VN;    // rows of a task
-      for (int r0 = vr0; r0 < ldw; r0 += kVChunk) {
-        const int r1 = min(ldw, r0 + kVChunk);
+      // W^T v of every live column, one stream over the grid: tasks (list
+      // entry, segment of kSegVec 16-byte vectors a lane from vr0), dealt
+      // round robin to the grid's warps, the list walked forward on even
+      // steps and backward on odd ones (what a step reads last, the next
+      // reads first, from the L2); a warp loads its next task while it
+      // sums the current one; each partial to its slot (column, segment),
+      // which the column's owner adds in segment order after B3
+      const bool fwd = (k & 1) == 0;
+      const int gw = b * kPanWarps + warp;
+      unsigned long long pol_first, pol_normal;
+      asm("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;" : "=l"(pol_first));
+      asm("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;" : "=l"(pol_normal));
+      for (int r0 = vr0; r0 < ldw; r0 += vrows) {
+        const int r1 = min(ldw, r0 + vrows);
         if (r0 != vr0) stage_v(r0, r1);
-        __syncthreads();
         const V* vs = reinterpret_cast<const V*>(stage);
         const int ng = (r1 - r0) / VN;
-        const int nseg = (r1 - r0 + kSeg - 1) / kSeg;
-        const int ntask = s_nlive * nseg;
-        for (int t = warp; t < ntask; t += kPanWarps) {
-          const int li = t / nseg, sg = t - li * nseg;
-          const V* col = reinterpret_cast<const V*>(colW(llive[li]) + r0);
+        const int nsc = (r1 - r0 + kSeg - 1) / kSeg, sg0 = (r0 - vr0) / kSeg;
+        const int ntask = nlive * nsc;
+        // the task of dealt index i: its column and segment
+        auto task = [&](int i, int& cl, int& sg) {
+          const int t = fwd ? i : ntask - 1 - i;
+          const int e = t / nsc;
+          cl = live[e];
+          sg = t - e * nsc;
+        };
+        // the first dealt index from i on, in steps of the grid's warps,
+        // whose column is still live
+        auto next_live = [&](int i) {
+          for (; i < ntask; i += nw) {
+            int cl, sg;
+            task(i, cl, sg);
+            if (!((chosen[cl >> 5] >> (cl & 31)) & 1u)) break;
+          }
+          return i;
+        };
+        // x[m] holds the current task's m-th vector until it is summed,
+        // then the next task's: one task's loads stay in flight
+        V x[kSegVec];
+        int i = next_live(gw), cl = 0, sg = 0;
+        if (i < ntask) {
+          task(i, cl, sg);
+          const V* col = reinterpret_cast<const V*>(W + (size_t)cl * ldw + r0);
+          const unsigned long long pol =
+              i < ntask - kKeepTasks ? pol_first : pol_normal;
+#pragma unroll
+          for (int m = 0; m < kSegVec; ++m) {
+            const int g = sg * (kSeg / VN) + m * 32 + lane;
+            x[m] = g < ng ? Vec16<T>::load(col + g, pol) : V{};
+          }
+        }
+        while (i < ntask) {
+          const int in = next_live(i + nw);
+          int ncl = cl, nsgt = sg;
+          if (in < ntask) task(in, ncl, nsgt);
+          const V* ncol = reinterpret_cast<const V*>(W + (size_t)ncl * ldw + r0);
+          const unsigned long long pol =
+              in < ntask - kKeepTasks ? pol_first : pol_normal;
           T acc = T(0);
 #pragma unroll
           for (int m = 0; m < kSegVec; ++m) {
             const int g = sg * (kSeg / VN) + m * 32 + lane;
-            if (g < ng) acc = Vec16<T>::dot(__ldcg(col + g), vs[g], acc);
+            if (g < ng) acc = Vec16<T>::dot(x[m], vs[g], acc);
+            const int gn = nsgt * (kSeg / VN) + m * 32 + lane;
+            x[m] = (in < ntask && gn < ng) ? Vec16<T>::load(ncol + gn, pol) : V{};
           }
           acc = warp_sum(acc);
-          if (lane == 0) w1part[li * kMaxSeg + sg] = acc;
-        }
-        __syncthreads();
-        for (int li = tid; li < s_nlive; li += kPanThreads) {
-          T a = w1s[llive[li]];
-          for (int sg = 0; sg < nseg; ++sg) a += w1part[li * kMaxSeg + sg];
-          w1s[llive[li]] = a;
+          if (lane == 0) w1part[(size_t)cl * nsegw + sg0 + sg] = acc;
+          i = in;
+          cl = ncl;
+          sg = nsgt;
         }
       }
       PHASE(7);
       grid_sync();                                                    // B3
       PHASE(8);
 
-      // ---- F[:, j], row k and the downdated norms of this block's columns
+      // ---- F[:, j], row k and the downdated norms of this block's
+      // columns: Vp^T v by the last kMaxNB threads, and W^T v (its
+      // partials added in segment order, from zero) and row k of a live
+      // column by thread l, at once
       if (j > 0) {
         const int u0 = k / kW2Chunk;
-        for (int q = tid; q < j; q += kPanThreads) {
+        const int q = tid - (kPanThreads - kMaxNB);
+        if (q >= 0 && q < j) {
           T sum = T(0);
 #pragma unroll 4
           for (int u = u0; u < nchunkW; ++u) sum += __ldcg(w2part + (size_t)u * nb + q);
@@ -590,7 +722,14 @@ cpqr_panels(const T* __restrict__ M, T* out, T* tauv,
         }
       }
       for (int l = tid; l < nloc; l += kPanThreads)
-        if (lpos[l] > k) wks[l] = __ldcg(colW(l) + k);
+        if (lpos[l] > k) {
+          wks[l] = __ldcg(colW(l) + k);
+          const T* part = w1part + (size_t)(b + l * G) * nsegw;
+          T a = T(0);
+#pragma unroll 8
+          for (int sg = 0; sg < nsg; ++sg) a += __ldcg(part + sg);
+          w1s[l] = a;
+        }
       if (tid == 0) vpk[j] = unit;
       __syncthreads();
       for (int l = warp; l < nloc; l += kPanWarps) {
@@ -706,7 +845,7 @@ template <typename T>
 int panels_run(const T* M, T* out, T* tauv, long long* perm, void* scratch,
                int* counter, const int* nsteps, int rows, int cols, int kp,
                int nb, int blocks, cudaStream_t stream) {
-  if (blocks < 1 || blocks > cols || nb < 1 || nb > kMaxNB ||
+  if (blocks < 1 || blocks > cols || nb < 1 || nb > kMaxNB || cols > 65536 ||
       (cols + blocks - 1) / blocks > kPanWarps * kMaxQ)
     return (int)cudaErrorInvalidValue;
   const size_t smem = panels_shared_bytes(rows, cols, blocks, nb, sizeof(T));
@@ -736,8 +875,8 @@ int panels_run(const T* M, T* out, T* tauv, long long* perm, void* scratch,
 // cpqr_panels_scratch_bytes(...) bytes; counter: one int32; nsteps: a
 // pointer to one device int32 (clamped to [0, min(rows, cols)] on the
 // device); nb: the panel width (<= 128); blocks <= min(SM count, cols),
-// with cpqr_panels_shared_bytes(...) within the device's opt-in limit and
-// ceil(cols / blocks) <= 128.
+// with cpqr_panels_shared_bytes(...) within the device's opt-in limit,
+// ceil(cols / blocks) <= 128 and cols <= 65,536.
 extern "C" int cpqr_panels_f32(const void* M, void* out, void* tauv,
                                void* perm, void* scratch, void* counter,
                                const void* nsteps, int rows, int cols, int kp,

@@ -67,9 +67,12 @@ _limits: dict[int, tuple[int, int, bool]] = {}
 H100_LIMITS = (132, 232_448, True)
 
 # The panel kernel's layout (``csrc/cpqr_panels.cu``): warps a block, the
-# bytes it stages in shared memory, own columns a warp at most.
+# bytes it stages in shared memory (at least; v at most), a W^T v task's
+# bytes, own columns a warp at most.
 _PANEL_WARPS = 16
 _PANEL_STAGE_BYTES = 8 * 64 * 65
+_PANEL_V_BYTES = 48 * 1024
+_PANEL_SEG_BYTES = 4096
 _PANEL_MAX_COLS_PER_WARP = 8
 
 
@@ -158,13 +161,18 @@ def fits_resident(rows: int, cols: int, dtype, sm_count: int,
 
 def _panels_shared_bytes(rows: int, cols: int, blocks: int, nb: int,
                          itemsize: int) -> int:
-    """Dynamic shared memory of one block of the panel kernel: the stage,
-    the F rows, norms, W^T v, row k and eight W^T v partials of its
-    ``ceil(cols / blocks)`` columns, four panel-width vectors, and two
-    int32 lists of its columns (as ``csrc/cpqr_panels.cu`` sizes it)."""
+    """Dynamic shared memory of one block of the panel kernel: the stage
+    (at least its tiles, and v in whole 4 KB segments up to 48 KB), the F
+    rows, norms, W^T v and row k of its ``ceil(cols / blocks)`` columns,
+    four panel-width vectors, an int32 position a column of its own, a bit
+    a column of the matrix and a 16-bit list of them (as
+    ``csrc/cpqr_panels.cu`` sizes it)."""
     nloc = -(-cols // blocks)
-    return (_PANEL_STAGE_BYTES + (nloc * (nb + 11) + 4 * nb) * itemsize
-            + 8 * nloc)
+    seg = _PANEL_SEG_BYTES // itemsize
+    v_rows = min(-(-((rows + 3) & ~3) // seg) * seg, _PANEL_V_BYTES // itemsize)
+    stage = max(_PANEL_STAGE_BYTES, v_rows * itemsize)
+    return (stage + (nloc * (nb + 3) + 4 * nb) * itemsize + 4 * nloc
+            + 4 * -(-cols // 32) + 2 * cols)
 
 
 def fits_panels(rows: int, cols: int, dtype, sm_count: int,
@@ -184,10 +192,11 @@ def fits_panels(rows: int, cols: int, dtype, sm_count: int,
 
 def _panels_take(rows: int, cols: int, itemsize: int, blocks: int,
                  shared_bytes_per_block: int) -> bool:
-    """The panel kernel's layout on ``blocks`` blocks: int32 indices, at
-    most 128 columns a block, its shared memory within the limit."""
+    """The panel kernel's layout on ``blocks`` blocks: int32 indices,
+    16-bit column numbers, at most 128 columns a block, its shared memory
+    within the limit."""
     nb, _ = panel_width(min(rows, cols))
-    return (rows * cols < 2 ** 31 and
+    return (rows * cols < 2 ** 31 and cols <= 2 ** 16 and
             -(-cols // blocks) <= _PANEL_WARPS * _PANEL_MAX_COLS_PER_WARP and
             _panels_shared_bytes(rows, cols, blocks, nb, itemsize)
             <= shared_bytes_per_block)

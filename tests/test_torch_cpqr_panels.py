@@ -28,7 +28,9 @@ tested without a card is tested here:
 Three matrix shapes go through JAX, each compiled once (nsteps traced).
 ``chip_smoke.py`` (``b1_panels``) holds the kernel against the plain
 version on the card, and ``tests/test_torch_cpqr_kernel.py`` the gpu
-marked comparison."""
+marked comparison; the gpu marked test here holds the kernel where the
+first pivots take every column of one block (its W^T v sweep is dealt
+over the whole grid, whoever owns the columns)."""
 
 import functools
 
@@ -162,14 +164,18 @@ def test_panel_layout_bounds_the_columns_not_the_rows():
     """The kernel's shared memory holds F rows of a block's columns: the
     formula against the block's limit, and the 128-columns-a-block cap."""
     need = ch._panels_shared_bytes(5000, 4998, 132, 128, 8)
-    assert need == 8 * 64 * 65 + (38 * (128 + 11) + 4 * 128) * 8 + 8 * 38
+    # the stage holds the whole of v (5,120 rows: ten 512-row segments);
+    # a position a column of the block's own; a bit and a 16-bit list
+    # entry a column of the matrix
+    assert need == (5120 * 8 + (38 * (128 + 3) + 4 * 128) * 8 + 4 * 38
+                    + 4 * 157 + 2 * 4998)
     assert ch.fits_panels(10 ** 6, 2000, torch.float64, 132, 232_448)
     for dtype in (torch.float32, torch.float64):
         assert ch.fits_panels(1000, 16_896, dtype, 132, 232_448)
         assert not ch.fits_panels(1000, 16_897, dtype, 132, 232_448)
     # with less shared memory a block the F rows bind first
-    assert ch.fits_panels(1000, 7260, torch.float64, 132, 100_000)
-    assert not ch.fits_panels(1000, 7261, torch.float64, 132, 100_000)
+    assert ch.fits_panels(1000, 6202, torch.float64, 132, 100_000)
+    assert not ch.fits_panels(1000, 6203, torch.float64, 132, 100_000)
 
 
 # --------------------------------------------------------------- C10
@@ -328,3 +334,31 @@ def test_kernel_model_matches_jax_for_every_block_count(name):
     # row-slice partials of another width: the same factorization
     other = panels_model(tt(M), nsteps, nb, blocks=5, w2_chunk=16)
     _hold_against_jax(tb.unpack_packed(*other, nb=nb), want, nsteps)
+
+
+@pytest.mark.gpu
+def test_kernel_when_one_block_loses_its_columns_first():
+    """Needs the card and nvcc (run with ``pytest -m gpu``).  The W^T v
+    sweep is one stream dealt over the whole grid, whichever block owns
+    the columns: here every column of block 0 (c = 0 mod G, G blocks) has
+    10^3 times the others' norm, so the first pivots empty block 0 while
+    the others keep theirs.  perm equal to the plain panel loop, the
+    packed result and tau within 1e-9, and equal bits on 8 blocks (the
+    fewest that hold 1,000 columns, 128 a block), 13 and all of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    rows, cols = 1100, 1000
+    G = min(ch._device_limits("cuda")[0], cols)
+    M = np.random.default_rng(18).normal(size=(rows, cols))
+    M[:, ::G] *= 1e3
+    M = tt(M).cuda()
+    Bt, tau, perm = ch.cpqr_hopper_panels(M, cols)
+    Pt, ptau, pperm = tb.cpqr_panels_packed_plain(M, cols)
+    assert torch.equal(perm, pperm)
+    assert sorted(perm[:-(-cols // G)].tolist()) == list(range(0, cols, G))
+    assert float((Bt - Pt).abs().max()) <= 1e-9 * float(Pt.abs().max())
+    assert float((tau - ptau).abs().max()) <= 1e-9
+    for blocks in (8, 13, G):
+        got = ch._launch("panels", M, cols, blocks)
+        assert all(torch.equal(a, b) for a, b in zip(got, (Bt, tau, perm))), \
+            blocks
