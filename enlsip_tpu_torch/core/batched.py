@@ -96,13 +96,20 @@ def lane_hessians(fns: Functions, data=None):
     return torch.func.vmap(one)
 
 
+def _lane_count(pred) -> torch.Tensor:
+    """The lanes ``pred`` holds, as the int32 a span's payload is."""
+    return pred.sum(dtype=torch.int32)
+
+
 def batched_direction_analysis(x, rx, cx, active_cx_sum,
                                wsr: WorkingSetRound, alive, nb_iter, prev,
                                restart, dims: Dims, opts: Options,
                                rdims=None, hess=None) -> AnalysResult:
     """Batched ANALYS: GNDCHK per lane (cheap); the subspace and Newton
     directions only when some live lane selects them (eagerly one
-    read-back for both gates; captured, an IF node each)."""
+    read-back for both gates; captured, an IF node each).  Traced, each
+    body is a span (``subspace``, ``newton``) whose payload is the count
+    of live lanes that chose its method (code -1, code 2) in the trip."""
     gn = wsr.gn
     rx_sum = dot(rx, rx)
     mc, beta = analysis_decide(cx, wsr.act, active_cx_sum, gn, wsr.view,
@@ -115,25 +122,29 @@ def batched_direction_analysis(x, rx, cx, active_cx_sum,
     newton_pred = (mc == 2) & alive
     any_sub, any_newton = lane_flags(sub_pred, newton_pred)
     base = out
-    out = cond(any_sub,
-               lambda: tree_where(sub_pred,
-                                  subspace_direction(rx, rx_sum, wsr.act,
-                                                     active_cx_sum, gn,
-                                                     wsr.F_A, wsr.t, prev,
-                                                     restart, dims),
-                                  base),
-               lambda: base)
+
+    def subspace():
+        with span("subspace", x.device, lambda: _lane_count(sub_pred)):
+            return tree_where(sub_pred,
+                              subspace_direction(rx, rx_sum, wsr.act,
+                                                 active_cx_sum, gn, wsr.F_A,
+                                                 wsr.t, prev, restart, dims),
+                              base)
+
+    out = cond(any_sub, subspace, lambda: base)
     if opts.second_derivatives:
         base2 = out
-        out = cond(any_newton,
-                   lambda: tree_where(newton_pred,
-                                      newton_direction(None, None, x, rx,
-                                                       wsr.lam, wsr.view,
-                                                       wsr.act, wsr.F_A,
-                                                       wsr.F_L11, gn, wsr.t,
-                                                       dims, rdims, hess=hess),
-                                      base2),
-                   lambda: base2)
+
+        def newton():
+            with span("newton", x.device, lambda: _lane_count(newton_pred)):
+                return tree_where(newton_pred,
+                                  newton_direction(None, None, x, rx, wsr.lam,
+                                                   wsr.view, wsr.act, wsr.F_A,
+                                                   wsr.F_L11, gn, wsr.t, dims,
+                                                   rdims, hess=hess),
+                                  base2)
+
+        out = cond(any_newton, newton, lambda: base2)
     else:
         p, b, d, dimA, dimJ2, code, ec = out
         out = (p, b, d, dimA, dimJ2, torch.where(mc == 2, 2, code),

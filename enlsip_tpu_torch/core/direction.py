@@ -26,6 +26,7 @@ from .subproblem import (ActiveConstraint, FactorA, FactorJ2, FactorL11,
                          GNResult, _embed, factor_l11, j2_transform_d,
                          newton_search_direction, sub_search_direction)
 from .types import Dims, PrevIter, WorkingView, rdims_or
+from ..utils.profiling import span
 
 
 def check_gn_direction(b1nrm, d1nrm, d1nrm_as_km1, dnrm, active_c_sum,
@@ -308,7 +309,8 @@ def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
     """ANALYS.  ONE of the three branches (GN, subspace, Newton) is
     evaluated, chosen by the method code through ``_lanes.switch`` (JAX:
     ``lax.switch``): a conditional node of the solve's graph, or one
-    read-back in an eager loop."""
+    read-back in an eager loop.  Traced, the subspace and Newton branches
+    are spans (``subspace``, ``newton``)."""
     rx_sum = rows_sum(torch.sum(rx * rx, dim=-1))
     rankA, rankJ2 = gn.rankA, gn.rankJ2
 
@@ -323,13 +325,15 @@ def search_direction_analysis(res_fn: Callable, cons_fn: Callable,
         return (gn.p, gn.b, gn.d, rankA, rankJ2, const_(1), const_(0))
 
     def subspace_branch():
-        return subspace_direction(rx, rx_sum, act, active_cx_sum, gn, F_A, t,
-                                  prev, restart, dims)
+        with span("subspace", x.device):
+            return subspace_direction(rx, rx_sum, act, active_cx_sum, gn,
+                                      F_A, t, prev, restart, dims)
 
     def newton_branch():
         if second_derivatives:
-            return newton_direction(res_fn, cons_fn, x, rx, lam, view, act,
-                                    F_A, F_L11, gn, t, dims, rdims)
+            with span("newton", x.device):
+                return newton_direction(res_fn, cons_fn, x, rx, lam, view,
+                                        act, F_A, F_L11, gn, t, dims, rdims)
         return (gn.p, gn.b, gn.d, rankA, rankJ2, const_(2), const_(-4))
 
     p, b, d, dimA, dimJ2, code, error_code = switch(

@@ -55,6 +55,7 @@ from ..ops.tsqr import (CholQRF, TSQRF, cholqr_cpqr,
 from ..ops.wy_hopper import (use_wy_hopper, wy_gram_project,
                              wy_gram_project_noapply)
 from .types import Dims, WorkingView, rdims_or
+from ..utils.profiling import span
 
 
 class ActiveConstraint(NamedTuple):
@@ -502,10 +503,12 @@ def newton_search_direction(res_fn: Callable, cons_fn: Callable,
     # Scatter slot multipliers to the full constraint vector.
     lam_full = put(torch.zeros(l, dtype=dtype, device=dev), view.active_list,
                    torch.where(act.valid, lam, torch.zeros_like(lam)))
-    if hess is None:
-        r_mat, c_mat = hessian_contractions(res_fn, cons_fn, x, rx, lam_full)
-    else:
-        r_mat, c_mat = hess(x, rx, lam_full)
+    with span("hessian", dev):
+        if hess is None:
+            r_mat, c_mat = hessian_contractions(res_fn, cons_fn, x, rx,
+                                                lam_full)
+        else:
+            r_mat, c_mat = hess(x, rx, lam_full)
     r_mat = rows_sum(r_mat)     # sum_k r_k hess(r_k) over the rank's rows
     Gamma = r_mat - c_mat
     E = right_q_apply(F_A.f, qt_apply(F_A.f, Gamma))

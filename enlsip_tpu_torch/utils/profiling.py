@@ -14,7 +14,9 @@ captured solve, where a host timer, an NVTX range or a
   runs where the replay reaches it (inside a conditional body only when
   the body runs) and writes ``(site, payload, %globaltimer ns)`` into a
   ring on the card (``_graph._SpanRing``).  ``payload`` is a 0-d integer
-  tensor on the card that the stamp reads when it runs (a step count);
+  tensor on the card that the stamp reads when it runs (a step count),
+  or a function that makes one, called only while tracing is on (a count
+  that costs a kernel of its own: with tracing off it never runs);
 * on the CPU (a rehearsal of a device-resident solve) the same site
   appends ``(site, payload, perf_counter_ns)`` to a host list;
 * a HOST span (no ``device``: the API's stages) records
@@ -180,6 +182,8 @@ def span(name: str, device=None, payload=None, **attrs):
     """A named region (see the module docstring); a context manager."""
     if _local.quiet or not enabled():
         return _NULL
+    if callable(payload):
+        payload = payload()
     return _Span(name, device, payload, attrs)
 
 

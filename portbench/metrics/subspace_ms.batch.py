@@ -1,0 +1,16 @@
+"""Device ms a batch in the subspace-minimization section of the
+lockstep body: the ``subspace`` spans stamped on the card (the subspace
+IF body, run in a trip where some live lane chose it), over the traced
+batches.  None where the program stamps no such span."""
+
+from portbench import spans
+
+
+def read(ctx):
+    if ctx.entry != "batch":
+        return None
+    got = spans.calls(ctx, "batch")
+    if got is None:
+        return None
+    inner = spans.within(got[1], "subspace")
+    return sum(spans.ms(r) for r in inner) / len(got[1]) if inner else None
